@@ -1,0 +1,136 @@
+"""The port stands alone: no module of x265_tpu_torch, nor chip_smoke.py,
+imports jax or the JAX package — checked in the sources and, in a fresh
+interpreter, in sys.modules after importing every module. Also: options
+outside the slice raise, and no CUDA device without an explicit CPU
+request raises."""
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "x265_tpu_torch")
+_BAD = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|x265_tpu)(\.|\s|$)", re.M)
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _dirs, files in os.walk(PKG):
+        if os.path.basename(d) in ("build", "__pycache__"):
+            continue
+        out += [os.path.join(d, f) for f in files
+                if f.endswith((".py", ".cu", ".cpp", ".h"))]
+    return sorted(out)
+
+
+def test_sources_never_import_jax_or_the_jax_package():
+    srcs = _sources()
+    assert len(srcs) > 40
+    for path in srcs:
+        text = open(path, encoding="utf-8").read()
+        assert not _BAD.search(text), path
+        assert "import_module(\"jax" not in text, path
+        assert "__import__(\"jax" not in text, path
+
+
+def test_importing_every_module_loads_neither():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "import x265_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "x265_tpu_torch.__path__, 'x265_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    if n.endswith('__main__'):\n"
+        "        continue\n"
+        "    importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'jaxlib' or m == 'x265_tpu' or "
+        "m.startswith('x265_tpu.')]\n"
+        "assert not bad, bad\n"
+        "assert 'triton' not in sys.modules\n"
+        "print(len(names))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) > 35
+
+
+def _params(**kw):
+    from x265_tpu_torch.api.params import param_default_preset, param_parse
+    p = param_default_preset("ultrafast", "zerolatency")
+    for k, v in (("qp", "30"), ("scenecut", "0"), ("ref", "1")):
+        param_parse(p, k, v)
+    p.width, p.height = 64, 64
+    for k, v in kw.items():
+        setattr(p, k, v)
+    return p
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("bframes", dict(bframes=2)), ("CQP", dict(rc_mode=0)),
+    ("scenecut", dict(scenecut=40)), ("aq_mode", dict(aq_mode=1)),
+    ("cu_tree", dict(cu_tree=True)), ("deblock", dict(deblock=True)),
+    ("sao", dict(sao=True)), ("weightp", dict(weightp=True)),
+    ("rd_level", dict(rd_level=3)), ("rdoq_level", dict(rdoq_level=1)),
+    ("tu_inter_depth", dict(tu_inter_depth=2)), ("tskip", dict(tskip=True)),
+    ("lossless", dict(lossless=True)), ("slices", dict(slices=2)),
+    ("wpp", dict(wpp=True)), ("keyint 1", dict(keyint=1)),
+])
+def test_unsupported_option_raises_naming_it(name, kw):
+    from x265_tpu_torch.api.encoder import Encoder
+    with pytest.raises(NotImplementedError) as ei:
+        Encoder(_params(**kw), device="cpu")
+    assert name in str(ei.value)
+
+
+def test_bit_depth_raises():
+    from x265_tpu_torch.api.encoder import Encoder
+    from x265_tpu_torch.api.params import param_parse
+    p = _params()
+    param_parse(p, "output-depth", "10")
+    with pytest.raises(NotImplementedError, match="bit_depth"):
+        Encoder(p, device="cpu")
+
+
+def test_device_none_without_cuda_raises():
+    import numpy as np
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from x265_tpu_torch.api.encoder import Encoder
+    from x265_tpu_torch.engine.me import motion_fused
+    from x265_tpu_torch.models.intra_frame import decide_intra_frame_tpu
+    from x265_tpu_torch.utils.device import resolve_device
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Encoder(_params())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    y = np.zeros((64, 64), np.uint8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        motion_fused(y, [y], 64, 64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decide_intra_frame_tpu(y, 64, 64)
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_fails_without_a_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                       capture_output=True, text=True)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_native_loader_raises_when_the_build_fails(tmp_path, monkeypatch):
+    from x265_tpu_torch import native
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_SO", str(tmp_path / "nope.so"))
+    monkeypatch.setattr(native, "_BUILD", str(tmp_path))
+    monkeypatch.setattr(native, "_SRC", str(tmp_path / "missing.cpp"))
+    monkeypatch.setattr(native, "_needs_build", lambda: True)
+    with pytest.raises(RuntimeError, match="build failed"):
+        native.get_lib()

@@ -1,0 +1,156 @@
+"""The port's kernels' plain versions (what a CPU tensor gets) against
+the JAX package: the Pallas SATD in interpret mode, and the jnp twins of
+the three gather kernels. All integer: exact equality.
+
+The CUDA kernels themselves have no interpret mode; the test that
+launches them is tests/test_torch_gpu.py (marked `gpu`), held against the
+same plain versions on the card (chip_smoke.py does the same at 1080p
+shapes).
+"""
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+import x265_tpu.models.inter_residual as jir
+import x265_tpu.engine.me as jme
+from x265_tpu.ops import pallas_kernels as jpk
+
+import x265_tpu_torch.models.inter_residual as tir
+import x265_tpu_torch.engine.me as tme
+from x265_tpu_torch.ops import cuda_kernels, cuda_mc
+
+
+def T(a, dt=None):
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t if dt is None else t.to(dt)
+
+
+@pytest.mark.parametrize("S,N", [(8, 300), (16, 100), (32, 9)])
+def test_satd_matches_pallas_interpret_and_jnp(S, N):
+    rng = np.random.default_rng(S)
+    a = rng.integers(0, 256, (N, S, S)).astype(np.int32)
+    b = rng.integers(0, 256, (N, S, S)).astype(np.int32)
+    want = np.asarray(jpk.satd_pallas(jnp.asarray(a), jnp.asarray(b),
+                                      interpret=True))
+    twin = np.asarray(jme.satd8_batched(jnp.asarray(a), jnp.asarray(b)))
+    assert np.array_equal(want, twin)
+    got = cuda_kernels.satd(T(a), T(b))            # CPU tensor -> plain
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(tme.satd8_batched(T(a), T(b)).numpy(), want)
+    assert cuda_mc.launches["satd8x8"] == 0        # no kernel on the CPU
+
+
+@pytest.mark.parametrize("n,taps,bd", [(16, 8, 8), (8, 4, 8), (32, 8, 8)])
+def test_mc_gather_matches_jnp_twin(n, taps, bd):
+    rng = np.random.default_rng(0)
+    H, W, pad = 256, 448, 80
+    R = 2
+    planes = rng.integers(
+        0, (1 << bd) - 1, (R, H + 2 * pad, W + 2 * pad)).astype(np.int16)
+    N = 100                     # deliberately not a multiple of 8
+    filt = jir._LUMA_FILT if taps == 8 else jir._CHROMA_FILT
+    fb = 2 if taps == 8 else 3
+    args = [rng.integers(0, R, N).astype(np.int32),
+            rng.integers(0, W - n, N).astype(np.int32),
+            rng.integers(0, H - n, N).astype(np.int32),
+            rng.integers(-228, 228, N).astype(np.int32),
+            rng.integers(-228, 228, N).astype(np.int32)]
+    # sentinel origins: far outside, clamped by both sides
+    args[1][:3] = (1 << 20, -(1 << 20), 5)
+    args[2][:3] = (7, 1 << 20, -(1 << 20))
+    want = np.asarray(jir._mc_gather(
+        jnp.asarray(planes), *(jnp.asarray(a) for a in args), filt=filt,
+        fb=fb, n=n, taps=taps, pad=pad, bd=bd))
+    got = tir._mc_gather(T(planes), *(T(a) for a in args), filt=T(filt),
+                         fb=fb, n=n, taps=taps, pad=pad, bd=bd)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_tile_gather_matches_jnp_twin_with_sentinels():
+    rng = np.random.default_rng(1)
+    H, W = 256, 448
+    src = rng.integers(0, 255, (H, W)).astype(np.uint8)
+    N = 66
+    ys = np.concatenate([rng.integers(0, H - 16, N - 2),
+                         [1 << 20, 5]]).astype(np.int32)
+    xs = np.concatenate([rng.integers(0, W - 16, N - 2),
+                         [3, 1 << 20]]).astype(np.int32)
+    for size in (16, 30, 4):
+        want = np.asarray(jir.gather_src_blocks(
+            jnp.asarray(src), jnp.asarray(ys), jnp.asarray(xs), size))
+        got = tir.gather_src_blocks(T(src), T(ys), T(xs), size)
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want)
+
+
+def test_gather_phase_blocks_matches_jnp_twin():
+    rng = np.random.default_rng(2)
+    Hm, Wm, S, N = 96, 160, 16, 77
+    planes = rng.integers(0, 256, (4, 4, Hm, Wm)).astype(np.int16)
+    fy = rng.integers(0, 4, N).astype(np.int32)
+    fx = rng.integers(0, 4, N).astype(np.int32)
+    # some beyond the far edge: both sides clamp them to dim - S (the
+    # tile kernels' contract is clip-into-range; origins are never
+    # negative on the encoder's path, where the twin would wrap instead)
+    iy = rng.integers(0, Hm + 8, N).astype(np.int32)
+    ix = rng.integers(0, Wm + 8, N).astype(np.int32)
+    want = np.asarray(jme._gather_phase_blocks(
+        jnp.asarray(planes), jnp.asarray(fy), jnp.asarray(fx),
+        jnp.asarray(iy), jnp.asarray(ix), S))
+    got = tme._gather_phase_blocks(T(planes), T(fy), T(fx), T(iy), T(ix), S)
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_plain_versions_clip_every_index_into_range():
+    rng = np.random.default_rng(3)
+    planes = T(rng.integers(0, 256, (3, 40, 50)).astype(np.int16))
+    oy = T(np.array([-5, 1 << 20, 7, 39], np.int32))
+    ox = T(np.array([1 << 20, -9, 49, 3], np.int32))
+    r = T(np.array([-1, 7, 1, 2], np.int32))
+    cy = T(np.array([0, 32, 7, 32], np.int32))
+    cx = T(np.array([42, 0, 42, 3], np.int32))
+    cr = T(np.array([0, 2, 1, 2], np.int32))
+    assert torch.equal(cuda_mc.tile_gather(planes[1], oy, ox, 8),
+                       cuda_mc.tile_gather(planes[1], cy, cx, 8))
+    assert torch.equal(cuda_mc.tile_gather_planes(planes, r, oy, ox, 8),
+                       cuda_mc.tile_gather_planes(planes, cr, cy, cx, 8))
+    filt = T(jir._CHROMA_FILT)
+    ph = T(np.array([-1, 9, 3, 7], np.int32))
+    cph = T(np.array([0, 7, 3, 7], np.int32))
+    my = T(np.array([0, 29, 7, 29], np.int32))      # dim - (8 + 4 - 1)
+    mx = T(np.array([39, 0, 39, 3], np.int32))
+    assert torch.equal(
+        cuda_mc.mc_gather_interp(planes, r, oy, ox, ph, ph, filt, 8, 4, 8),
+        cuda_mc.mc_gather_interp(planes, cr, my, mx, cph, cph, filt, 8, 4, 8))
+
+
+def test_wrappers_reject_bad_arguments():
+    plane = torch.zeros((64, 64), dtype=torch.int16)
+    o = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        cuda_mc.tile_gather(plane.to(torch.int32), o, o, 8)
+    with pytest.raises(TypeError):
+        cuda_mc.tile_gather(plane, o.long(), o, 8)
+    with pytest.raises(ValueError):
+        cuda_mc.tile_gather(plane.t(), o, o, 8)        # not contiguous
+    with pytest.raises(ValueError):
+        cuda_mc.tile_gather(plane, o, o, 65)
+    with pytest.raises(ValueError):
+        cuda_kernels.satd(torch.zeros((2, 12, 12), dtype=torch.int32),
+                          torch.zeros((2, 12, 12), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("mod,name", [
+    (cuda_mc, "tile_gather"), (cuda_mc, "tile_gather_planes"),
+    (cuda_mc, "mc_gather_interp"), (cuda_kernels, "satd")])
+def test_wrapper_reaches_plain_version_only_for_cpu_tensors(mod, name):
+    """The device of the tensor alone decides: no switch, no try/except."""
+    import inspect
+    lines = inspect.getsource(getattr(mod, name)).splitlines()
+    calls = [i for i, l in enumerate(lines) if f"{name}_plain(" in l]
+    assert len(calls) == 1
+    assert lines[calls[0] - 1].strip() == 'if dev.type != "cuda":'
+    assert not any(l.strip().startswith(("try:", "except")) for l in lines)

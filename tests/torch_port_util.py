@@ -1,0 +1,96 @@
+"""Shared helpers of the tests/test_torch_*.py files: seeded clips and
+the slice's configuration, built the same way for both packages."""
+import importlib
+
+import numpy as np
+
+
+def make_clip(w, h, n, seed=0, step=(2, 3)):
+    """Moving smooth texture (non-zero motion), 8-bit 4:2:0."""
+    rng = np.random.default_rng(seed)
+    big = rng.integers(0, 256, (h + 64, w + 64)).astype(np.float32)
+    for _ in range(3):
+        big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1)
+               + np.roll(big, -1, 0) + np.roll(big, -1, 1)) / 5
+    big = np.clip((big - 128) * 3 + 128, 0, 255)
+    frames = []
+    for i in range(n):
+        dy, dx = 16 + step[0] * i, 16 + step[1] * i
+        y = big[dy:dy + h, dx:dx + w].astype(np.uint8)
+        cb = (y[::2, ::2] // 2 + 64).astype(np.uint8)
+        cr = (255 - y[::2, ::2] // 2).astype(np.uint8)
+        frames.append((y, cb, cr))
+    return frames
+
+
+def _smooth_noise(h, w, cell, rng):
+    """Bilinear-upsampled random grid: aperiodic smooth texture."""
+    g = rng.normal(0.0, 1.0, (h // cell + 2, w // cell + 2))
+    ys, xs = np.arange(h) / cell, np.arange(w) / cell
+    y0, x0 = ys.astype(int), xs.astype(int)
+    fy, fx = (ys - y0)[:, None], (xs - x0)[None, :]
+    return (g[y0][:, x0] * (1 - fy) * (1 - fx)
+            + g[y0][:, x0 + 1] * (1 - fy) * fx
+            + g[y0 + 1][:, x0] * fy * (1 - fx)
+            + g[y0 + 1][:, x0 + 1] * fy * fx)
+
+
+def make_hard_clip(w, h, n, seed=0):
+    """Frames built so that thresholded decisions fall on both sides
+    within one picture: the top half moves as one (CUs merge and
+    promote), in the bottom half every 16x16 block has its own
+    quarter-pel motion (they do not); contrast rises from left to right
+    (skipped and coded residuals); a smooth brightness drift survives
+    quantization; a few blocks per frame hold content that no reference
+    has (intra candidates)."""
+    rng = np.random.default_rng(seed)
+    H2, W2 = h + 48, w + 48
+    tex = (_smooth_noise(H2, W2, 32, rng) + 0.6 * _smooth_noise(H2, W2, 16,
+                                                               rng)
+           + 0.3 * _smooth_noise(H2, W2, 8, rng))
+    base = 128 + 60 * tex / 1.4 * np.linspace(0.25, 1.2, W2)[None, :]
+    drift = _smooth_noise(h, w, 64, np.random.default_rng(seed + 100))
+    frames = []
+    for i in range(n):
+        cur = np.zeros((h, w), np.float64)
+        for by in range(0, h, 16):
+            for bx in range(0, w, 16):
+                bh, bw = min(16, h - by), min(16, w - bx)
+                if by < h // 2:
+                    wx = wy = 0.0
+                else:
+                    wx = rng.integers(0, 4) / 4.0
+                    wy = rng.integers(0, 4) / 4.0
+
+                def sh(dy, dx):
+                    return base[16 + by + dy + i:16 + by + dy + i + bh,
+                                16 + bx + dx + 2 * i:
+                                16 + bx + dx + 2 * i + bw]
+                cur[by:by + bh, bx:bx + bw] = (
+                    (1 - wy) * ((1 - wx) * sh(0, 0) + wx * sh(0, 1))
+                    + wy * ((1 - wx) * sh(1, 0) + wx * sh(1, 1)))
+        cur = cur + 3.0 * i * drift
+        for _ in range(max(2, (h * w) // 8192)):
+            by = int(rng.integers(0, h // 16)) * 16
+            bx = int(rng.integers(0, w // 16)) * 16
+            cur[by:by + 16, bx:bx + 16] = (
+                np.arange(16)[:, None] * 4 + np.arange(16)[None, :] * 2
+                + (17 * i) % 100 + 40)
+        y = np.clip(np.rint(cur), 0, 255).astype(np.uint8)
+        cb = (y[::2, ::2] // 2 + 64).astype(np.uint8)
+        cr = (255 - y[::2, ::2] // 2).astype(np.uint8)
+        frames.append((y, cb, cr))
+    return frames
+
+
+def slice_params(pkg, w, h, **extra):
+    """ultrafast + zerolatency, qp 30, scenecut 0, ref 1 — through the
+    named package's own param_default_preset/param_parse."""
+    P = importlib.import_module(pkg + ".api.params")
+    p = P.param_default_preset("ultrafast", "zerolatency")
+    opts = {"qp": "30", "scenecut": "0", "ref": "1"}
+    opts.update(extra)
+    for k, v in opts.items():
+        P.param_parse(p, k, str(v))
+    p.width, p.height = w, h
+    return p

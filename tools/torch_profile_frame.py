@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""Where one 1080p P frame of the PyTorch/CUDA port spends its time.
+
+    python3 tools/torch_profile_frame.py [--frames 6] [--out trace.json]
+
+Needs a CUDA device. Encodes a seeded 1920x1080 clip in the low-latency
+I/P configuration (the clip and parameters of chip_smoke.py), lets the
+first frames warm everything up, then traces the LAST P frame with
+torch.profiler and prints one JSON object: the frame's wall time, the
+device's busy time and idle share inside it, the per-stage seconds, the
+device time of the four hand-written kernels, and the kernels that took
+most of the device's time. With --out it also writes the Chrome trace.
+"""
+import argparse
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402  (exits when there is no CUDA device)
+from x265_tpu_torch.api.encoder import Encoder  # noqa: E402
+from x265_tpu_torch.utils import profiling  # noqa: E402
+
+OURS = ("mc_gather_kernel", "tile_gather_kernel", "satd8_kernel")
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=6)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    card = chip_smoke.smi()
+    frames = chip_smoke.make_clip(chip_smoke.W, chip_smoke.H, args.frames,
+                                  seed=11)
+    enc = Encoder(chip_smoke.slice_params(chip_smoke.W, chip_smoke.H))
+    enc.headers()
+    for f in frames[:-1]:
+        enc.encode_frame(*f)
+    torch.cuda.synchronize()
+    profiling.reset()
+    profiling.set_sync(True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        au = enc.encode_frame(*frames[-1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    profiling.set_sync(False)
+    rows = []
+    stage_names = set(profiling.report())
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "cuda_time_total", 0)
+        on_device = str(getattr(e, "device_type", "")).endswith("CUDA")
+        # the stage scopes also appear on the device timeline, as ranges
+        # that span their kernels: they are not kernels and not busy time
+        if on_device and dev_us > 0 and e.key not in stage_names:
+            rows.append((e.key, dev_us / 1e3, e.count))
+    spans = {e.key: getattr(e, "self_device_time_total", 0) / 1e3
+             for e in prof.key_averages()
+             if e.key in stage_names
+             and str(getattr(e, "device_type", "")).endswith("CUDA")}
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    out = {
+        "card": card, "frame_bytes": len(au), "frame_wall_ms": wall * 1e3,
+        "stage_ms": {k: v["seconds"] * 1e3
+                     for k, v in profiling.report().items()},
+    }
+    if rows:
+        ours = {k: sum(r[1] for r in rows if k in r[0]) for k in OURS}
+        out.update({
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+            "device_kernel_launches": sum(r[2] for r in rows),
+            "device_span_ms_by_stage": spans,
+            "hand_written_kernels_ms": ours,
+            "hand_written_share_of_busy": sum(ours.values()) / busy_ms,
+            "top_kernels": [{"name": r[0][:90], "ms": r[1], "calls": r[2]}
+                            for r in rows[:15]],
+        })
+    else:
+        out["device_busy_ms"] = "not measured (the profiler saw no kernels)"
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        prof.export_chrome_trace(args.out)
+    print(json.dumps(out, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,1138 @@
+"""Top-level encoder API (x265_encoder_open/encode/close analog,
+reference source/encoder/api.cpp:76,410 and encoder.cpp:1574).
+
+Scope of the port so far: the low-latency I/P encode — IDR/CRA + P
+pictures, CQP, no B frames, no lookahead, no loop filters, single slice
+per picture, Annex-B output. Per picture: intra analysis and motion
+search on the device, merge adoption and CU promotion on the host,
+inter residual/recon on the device, CABAC in the native writer.
+Everything else raises NotImplementedError at construction.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from x265_tpu_torch.api.params import Param, check_params
+from x265_tpu_torch.engine.ctu_writer import FrameDecisions
+from x265_tpu_torch.engine.planes import FramePlanes, MELuma
+from x265_tpu_torch.hevc.bitstream import (
+    annexb, make_nal, NAL_IDR_W_RADL, NAL_TRAIL_R,
+    NAL_VPS, NAL_SPS, NAL_PPS,
+)
+from x265_tpu_torch.hevc.headers import (
+    PPS, SPS, VPS, ProfileTierLevel, ShortTermRPS, SliceHeader,
+    SLICE_B, SLICE_I, SLICE_P,
+    write_pps, write_sps, write_vps, write_slice_header,
+)
+
+
+def _level_for(width: int, height: int, fps: float) -> int:
+    """Pick a general_level_idc (spec A.4 main-tier luma sample limits)."""
+    ls = width * height
+    rate = ls * fps
+    table = [  # (level_idc, MaxLumaPs, MaxLumaSr)
+        (30, 36864, 552960), (60, 122880, 3686400), (63, 245760, 7372800),
+        (90, 552960, 16588800), (93, 983040, 33177600),
+        (120, 2228224, 66846720), (123, 2228224, 133693440),
+        (150, 8912896, 267386880), (153, 8912896, 534773760),
+        (156, 8912896, 1069547520), (180, 35651584, 1069547520),
+        (183, 35651584, 2139095040), (186, 35651584, 4278190080),
+    ]
+    for idc, max_ps, max_sr in table:
+        if ls <= max_ps and rate <= max_sr:
+            return idc
+    return 186
+
+
+# spec Table A.8/A.9 rate limits per level_idc:
+# (MaxLumaPs, MaxLumaSr, MaxBR main kbps, MaxBR high kbps,
+#  MaxCPB main kb, MaxCPB high kb); high == 0 => no high tier at level
+_LEVEL_LIMITS = {
+    30: (36864, 552960, 128, 0, 350, 0),
+    60: (122880, 3686400, 1500, 0, 1500, 0),
+    63: (245760, 7372800, 3000, 0, 3000, 0),
+    90: (552960, 16588800, 6000, 0, 6000, 0),
+    93: (983040, 33177600, 10000, 0, 10000, 0),
+    120: (2228224, 66846720, 12000, 30000, 12000, 30000),
+    123: (2228224, 133693440, 20000, 50000, 20000, 50000),
+    150: (8912896, 267386880, 25000, 100000, 25000, 100000),
+    153: (8912896, 534773760, 40000, 160000, 40000, 160000),
+    156: (8912896, 1069547520, 60000, 240000, 60000, 240000),
+    180: (35651584, 1069547520, 60000, 240000, 60000, 240000),
+    183: (35651584, 2139095040, 120000, 480000, 120000, 480000),
+    186: (35651584, 4278190080, 240000, 800000, 240000, 800000),
+}
+
+
+def _load_rpu_file(path: str):
+    """Read a Dolby Vision RPU file -> list of per-frame NAL payloads
+    (display order). Accepts the common interchange formats: Annex-B
+    framed NAL_UNSPEC62 units (dovi_tool output / x265's input format)
+    or 4-byte big-endian length-prefixed payloads."""
+    with open(path, "rb") as f:
+        data = f.read()
+    out = []
+    if b"\x00\x00\x01" in data[:8]:
+        from x265_tpu_torch.hevc.bitstream import split_annexb
+        for nal in split_annexb(data):
+            out.append(nal)
+    else:
+        i = 0
+        while i + 4 <= len(data):
+            ln = int.from_bytes(data[i:i + 4], "big")
+            i += 4
+            if ln <= 0 or i + ln > len(data):
+                break
+            out.append(data[i:i + ln])
+            i += ln
+    return out
+
+
+def _enforce_level(p, level_idc: int) -> None:
+    """x265 enforceLevel analog (level.cpp:290): a user-requested
+    --level-idc must fit the picture size/rate (hard error otherwise),
+    and the rate-control knobs are clamped to the level's MaxBR/MaxCPB;
+    ABR without an explicit VBV gets the level-mandated one."""
+    from x265_tpu_torch.api.params import RC_ABR, _warn
+    lim = _LEVEL_LIMITS.get(level_idc)
+    if lim is None:
+        raise ValueError(f"unknown level_idc {level_idc}")
+    max_ps, max_sr, br_m, br_h, cpb_m, cpb_h = lim
+    fps = p.fps_num / max(1, p.fps_den)
+    if p.width * p.height > max_ps or p.width * p.height * fps > max_sr:
+        raise ValueError(
+            f"picture size/rate out of range for level {level_idc / 30:.1f}"
+            f" ({p.width}x{p.height}@{fps:g})")
+    if p.high_tier and not br_h:
+        _warn(p, f"level {level_idc / 30:.1f} has no high tier — "
+              "using main tier")
+        p.high_tier = False
+    max_br = br_h if p.high_tier else br_m
+    max_cpb = cpb_h if p.high_tier else cpb_m
+    if p.bitrate > max_br:
+        _warn(p, f"bitrate {p.bitrate} exceeds level limit — "
+              f"clamping to {max_br} kbps")
+        p.bitrate = max_br
+    if p.vbv_maxrate > max_br:
+        _warn(p, f"vbv-maxrate clamped to level limit {max_br} kbps")
+        p.vbv_maxrate = max_br
+    if p.vbv_bufsize > max_cpb:
+        _warn(p, f"vbv-bufsize clamped to level CPB limit {max_cpb} kb")
+        p.vbv_bufsize = max_cpb
+    if p.rc_mode == RC_ABR and not p.vbv_maxrate and not p.vbv_bufsize:
+        # a level claim is an HRD promise: give ABR the level-mandated
+        # buffer so the claim is enforceable (level.cpp:363)
+        p.vbv_maxrate = max_br
+        p.vbv_bufsize = max_cpb
+
+
+def _check_supported(p) -> None:
+    """Raise NotImplementedError, naming the option, for everything this
+    port does not encode yet — never silently encode something else."""
+    from x265_tpu_torch.api.params import RC_CQP
+    bad = []
+    if p.keyint == 1:
+        bad.append("keyint 1 (the all-intra pipelined path)")
+    if p.bframes > 0:
+        bad.append("bframes > 0")
+    if p.rc_mode != RC_CQP:
+        bad.append("rate control other than CQP (crf/bitrate)")
+    if p.scenecut > 0:
+        bad.append("scenecut > 0 (needs the lookahead)")
+    for name in ("aq_mode", "cu_tree", "deblock", "sao", "weightp",
+                 "rdoq_level", "tskip", "lossless", "wpp", "hist_scenecut",
+                 "frame_dup", "intra_refresh", "scaling_lists", "nr_intra",
+                 "nr_inter", "qpfile", "analysis_save", "analysis_load",
+                 "zones", "pass_num"):
+        if getattr(p, name, 0):
+            bad.append(name)
+    if p.rd_level >= 3:
+        bad.append("rd_level >= 3")
+    if p.tu_inter_depth >= 2:
+        bad.append("tu_inter_depth >= 2")
+    if p.slices > 1:
+        bad.append("slices > 1")
+    if p.bit_depth > 8:
+        bad.append("bit_depth > 8")
+    if bad:
+        raise NotImplementedError(
+            "x265_tpu_torch does not support yet: " + ", ".join(bad))
+
+
+class Encoder:
+    def __init__(self, param: Param, device=None):
+        """device=None means the CUDA device (raises when there is none);
+        the CPU tests pass device="cpu"."""
+        from x265_tpu_torch.utils.device import resolve_device
+        self.param = check_params(param.copy())
+        p = self.param
+        _check_supported(p)
+        self.device = resolve_device(device)
+        fps = p.fps_num / max(1, p.fps_den)
+        if p.level_idc and not p.allow_non_conformance:
+            _enforce_level(p, p.level_idc)
+        ptl = ProfileTierLevel(
+            profile_idc=2 if p.bit_depth == 10 else 1,
+            tier_flag=1 if p.high_tier else 0,
+            level_idc=p.level_idc or _level_for(p.width, p.height, fps),
+        )
+        # GOP structure: IDR + P pictures, each referencing up to p.ref
+        # earlier anchors (RPS written inline per slice)
+        self.ipp = True
+        self.bframes = 0
+        # DPB size must cover every retained picture: up to p.ref anchors
+        # + the current picture (libde265 enforces
+        # sps_max_dec_pic_buffering strictly)
+        dpb = min(8, max(1, p.ref) + 1)
+        self.vps = VPS(max_dec_pic_buffering=dpb, num_reorder_pics=0,
+                       ptl=ptl)
+        self.sps = SPS(
+            chroma_format_idc=1,
+            width=p.width, height=p.height,
+            bit_depth=p.bit_depth,
+            log2_max_poc_lsb=max(4, min(16, p.log2_max_poc_lsb)),
+            max_dec_pic_buffering=dpb,
+            num_reorder_pics=0,
+            short_term_rps=[],
+            log2_min_cb=p.min_cb_log2,
+            log2_diff_max_min_cb=p.ctb_log2 - p.min_cb_log2,
+            log2_min_tb=2,
+            log2_diff_max_min_tb=min(p.ctb_log2, 5) - 2,
+            max_transform_hierarchy_depth_inter=p.tu_inter_depth - 1,
+            max_transform_hierarchy_depth_intra=p.tu_intra_depth - 1,
+            amp_enabled=p.amp,
+            sao_enabled=p.sao,
+            strong_intra_smoothing=p.intra_smoothing,
+            vui_present=p.vui_timing_info,
+            fps_num=p.fps_num, fps_den=p.fps_den,
+            ptl=ptl,
+            scaling_list_enabled=False,
+            frame_field_info=False,
+        )
+        # HDR10 / colour description (x265 Encoder::configure vui wiring)
+        from x265_tpu_torch.api.params import (
+            COLOUR_PRIMARIES, MATRIX_COEFFS, TRANSFER_CHARACTERISTICS)
+        if p.hdr10 and not p.colorprim:
+            p.colorprim, p.transfer, p.colormatrix = (
+                "bt2020", "smpte2084", "bt2020nc")
+        if p.colorprim:
+            self.sps.colour_primaries = COLOUR_PRIMARIES[p.colorprim.lower()]
+        if p.transfer:
+            self.sps.transfer_characteristics = (
+                TRANSFER_CHARACTERISTICS[p.transfer.lower()])
+        if p.colormatrix:
+            self.sps.matrix_coeffs = MATRIX_COEFFS[p.colormatrix.lower()]
+        self.sps.video_full_range = p.video_full_range
+        self.sps.chroma_loc = p.chromaloc
+        if p.videoformat:
+            from x265_tpu_torch.api.params import VIDEO_FORMATS
+            self.sps.video_format = VIDEO_FORMATS[p.videoformat.lower()]
+        if p.sar:
+            from x265_tpu_torch.api.params import SAR_TABLE
+            s_ = p.sar.strip().lower()
+            if s_ in SAR_TABLE:
+                self.sps.sar_idc = SAR_TABLE[s_]
+            elif ":" in s_:
+                ww, hh = (int(v) for v in s_.split(":"))
+                self.sps.sar_idc, self.sps.sar_width, \
+                    self.sps.sar_height = 255, ww, hh
+            else:
+                self.sps.sar_idc = int(s_)
+        if (p.colorprim or p.transfer or p.colormatrix
+                or p.video_full_range or p.chromaloc >= 0
+                or p.sar or p.videoformat):
+            self.sps.vui_present = True
+        self.sps.temporal_mvp_enabled = p.tmvp
+        if p.hrd and p.vbv_maxrate > 0 and p.vbv_bufsize > 0:
+            # HRD signalling from the VBV config (x265 --hrd, hrd.cpp)
+            self.sps.hrd_bitrate = p.vbv_maxrate * 1000
+            self.sps.hrd_cpb_size = p.vbv_bufsize * 1000
+            self.sps.vui_present = True
+        self._poc_mask = (1 << self.sps.log2_max_poc_lsb) - 1
+        self.pps = PPS(
+            weighted_pred=False,
+            sign_data_hiding=p.sign_hide,
+            init_qp=26,
+            cb_qp_offset=p.cb_qp_offset,
+            cr_qp_offset=p.cr_qp_offset,
+            transquant_bypass_enabled=False,
+            transform_skip_enabled=False,
+            cu_qp_delta_enabled=False,
+            diff_cu_qp_delta_depth=0,          # QG == CTB
+            deblocking_filter_control_present=True,
+            deblocking_filter_disabled=True,
+            beta_offset_div2=p.deblock_beta_offset,
+            tc_offset_div2=p.deblock_tc_offset,
+            loop_filter_across_slices=True,
+            entropy_coding_sync_enabled=False,
+        )
+        self.poc = 0                 # POC of the next display-order frame
+        self.frame_count = 0         # display-order intake counter
+        self.frames_since_idr = 0
+        self._gop_base = 0           # display index of POC 0 of current CVS
+        # recon sink: called (display_index, (y, cb, cr)) per finished
+        # picture in encode order
+        self.recon_sink = None
+        # the decisions the most recent picture actually used
+        self._last_analysis = None
+        self._scenecut_frames = set()
+        self._pic_struct = {}
+        self._emitted = set()
+        # display index of each queued POC
+        self._input_idx = {}
+        # HDR10+ dynamic metadata (--dhdr10-info): per-display-frame ST
+        # 2094-40 JSON entries -> one prefix SEI per AU (x265 dynamicHDR10)
+        self._dhdr10 = None
+        self._dhdr10_last = None
+        if p.dhdr10_info:
+            from x265_tpu_torch.hevc.dhdr10 import load_dhdr10_json
+            self._dhdr10 = load_dhdr10_json(p.dhdr10_info)
+        # Dolby Vision RPU passthrough: one NAL_UNSPEC62 unit per display
+        # picture, appended at the end of its access unit
+        self._dovi_rpus = None
+        if p.dolby_vision_rpu:
+            self._dovi_rpus = _load_rpu_file(p.dolby_vision_rpu)
+            if p.dolby_vision_profile:
+                from x265_tpu_torch.api.params import _warn
+                _warn(p, "dolby-vision-profile accepted for signalling "
+                      "intent only — RPUs are passed through unmodified")
+        self.anchor = None           # (poc, (y, cb, cr)) last anchor recon
+        self._colmv = {}             # poc -> ColCtx (TMVP source fields)
+        self.anchors = []            # retained anchors, nearest first
+        self.pending = []            # queued (poc, frame) awaiting emission
+        self._zero_ref = None        # (pad, all-zero padded planes)
+        from x265_tpu_torch.engine.ratecontrol import RateControl
+        self.rc = RateControl(p)
+        self.frame_stats = []        # per-frame records in encode order
+
+    # -- public API --
+
+
+    # -- public API --
+
+    def headers(self) -> bytes:
+        """x265_encoder_headers analog: VPS/SPS/PPS as one Annex-B chunk."""
+        p = self.param
+        nals = [
+            make_nal(NAL_VPS, write_vps(self.vps)),
+            make_nal(NAL_SPS, write_sps(self.sps)),
+            make_nal(NAL_PPS, write_pps(self.pps)),
+        ]
+        out = annexb(nals)
+        # HDR10 static metadata rides prefix SEIs right after the
+        # parameter sets (x265 Encoder::getStreamHeaders analog)
+        from x265_tpu_torch.hevc import sei as sei_mod
+        if p.info_sei:
+            from x265_tpu_torch import __version__ as _ver
+            # the text is the JAX package's, byte for byte: the two
+            # packages' streams are compared whole
+            out += annexb([sei_mod.user_data_unregistered_sei(
+                f"x265-tpu {_ver} - TPU-native HEVC encoder - "
+                f"options: {p.width}x{p.height} fps={p.fps_num}/"
+                f"{p.fps_den} ctu={p.ctu_size} bframes={self.bframes} "
+                f"ref={p.ref} rd={p.rd_level}")])
+        if p.master_display:
+            out += annexb([sei_mod.mastering_display_sei(p.master_display)])
+        if p.max_cll:
+            cll, fall = (int(v) for v in p.max_cll.split(","))
+            out += annexb([sei_mod.content_light_level_sei(cll, fall)])
+        return out
+
+
+    def encode_frame(self, y: np.ndarray, cb: np.ndarray,
+                     cr: np.ndarray,
+                     decisions: Optional[FrameDecisions] = None) -> bytes:
+        """Submit one display-order picture; returns the access unit(s)
+        that completed (x265_encoder_encode latency contract,
+        api.cpp:410; with no B frames every picture completes at once)."""
+        p = self.param
+        if np.shape(y) != (p.height, p.width):
+            raise ValueError(f"luma plane is {np.shape(y)}, the encoder was "
+                             f"opened for {(p.height, p.width)}")
+        frame = (np.asarray(y), np.asarray(cb), np.asarray(cr))
+        frame = self._clip_input(frame)
+        out = b""
+        is_idr = (self.frame_count == 0 or
+                  (p.keyint > 0 and self.frames_since_idr >= p.keyint))
+        # CQP without scenecut needs no lookahead: frame costs are unit
+        cost = 1.0
+        self.frame_count += 1
+        if is_idr:
+            if (p.open_gop and self.anchor is not None
+                    and self.frame_count > 1):
+                # open GOP (x265 default; dpb.cpp:229 getNalUnitType):
+                # the keyframe is a CRA; with no B frames nothing is
+                # queued, so it has no leading pictures
+                out += self._emit_minigop(cra=(frame, cost))
+                self.frames_since_idr = 1
+                return out
+            out += self.flush()               # close any open mini-GOP
+            self.poc = 0
+            # frame_count was already incremented for this intake, so the
+            # IDR's display index (== new POC 0) is frame_count - 1
+            self._gop_base = self.frame_count - 1
+            self._input_idx = {0: self.frame_count - 1}
+            self.frames_since_idr = 1
+            qp = self.rc.start(SLICE_I, cost)
+            au = self._encode_intra_frame(*frame, decisions, qp=qp)
+            self.rc.end(len(au) * 8)
+            out += au
+            self.anchor = (0, self._last_recon)
+            self.anchors = [self.anchor]
+            self.poc = 1
+            return out
+        self.frames_since_idr += 1
+        self._input_idx[self.poc] = self.frame_count - 1
+        self.pending.append((self.poc, frame, cost))
+        self.poc += 1
+        out += self._emit_minigop()
+        return out
+
+    def _clip_input(self, frame):
+        """--min-luma/--max-luma: clip the source luma range (x265
+        planeClipAndMax, applied at picture intake)."""
+        p = self.param
+        if p.min_luma < 0 and p.max_luma < 0:
+            return frame
+        lo = p.min_luma if p.min_luma >= 0 else 0
+        hi = p.max_luma if p.max_luma >= 0 else (1 << p.bit_depth) - 1
+        return (np.clip(frame[0], lo, hi), frame[1], frame[2])
+
+    def flush(self) -> bytes:
+        """Encode all queued frames (end of stream / before an IDR)."""
+        out = b""
+        while self.pending:
+            out += self._emit_minigop()
+        return out
+
+    def flush_step(self) -> bytes:
+        """Incremental flush: encode ONE queued mini-GOP and return its
+        access units (the analog of x265_encoder_encode's pic_in=NULL
+        drain contract, api.cpp:410 — each call returns a bounded chunk
+        instead of the whole tail at once). Returns b"" when drained."""
+        if not self.pending:
+            return b""
+        return self._emit_minigop()
+
+
+    def close(self) -> None:
+        """End of encode: write 2-pass stats / close analysis files
+        (x265_encoder_close analog)."""
+        self.rc.write_stats()
+
+
+
+
+    def _emit_minigop(self, cra=None) -> bytes:
+        """The queued frame becomes the next P anchor (the bframes == 0
+        branch of the mini-GOP scheduler).
+
+        cra=(frame, cost): open-GOP keyframe — the given frame is coded
+        as a CRA intra picture."""
+        from x265_tpu_torch.hevc.bitstream import NAL_CRA
+        if cra is not None:
+            assert not self.pending
+            cra_frame, cra_cost = cra
+            cra_poc = self.poc
+            self._input_idx[cra_poc] = self.frame_count - 1
+            self.poc += 1
+            qp = self.rc.start(SLICE_I, cra_cost)
+            # the CRA's RPS keeps the prior anchors alive (used=0), as
+            # the B-frame configurations need; kept for stream parity
+            keep = sorted((a[0] for a in self.anchors), reverse=True)
+            au = self._encode_intra_frame(*cra_frame, qp=qp, poc=cra_poc,
+                                          nal_type=NAL_CRA,
+                                          keep_pocs=keep)
+            self.rc.end(len(au) * 8)
+            # random-access point: nothing before the CRA may be
+            # referenced afterwards
+            self.anchor = (cra_poc, self._last_recon)
+            self.anchors = [self.anchor]
+            return au
+        anchor_poc, anchor_frame, anchor_cost = self.pending.pop(0)
+        self.rc.set_lookahead([])
+        qp = self.rc.start(SLICE_P, anchor_cost)
+        out = self._encode_p_frame(anchor_frame, anchor_poc,
+                                   list(self.anchors), qp)
+        self.rc.end(len(out) * 8)
+        new_anchor = (anchor_poc, self._last_recon)
+        self.anchors.insert(0, new_anchor)
+        del self.anchors[max(1, self.param.ref):]
+        self.anchor = new_anchor
+        return out
+
+    def _slice_qp(self, slice_type: int) -> int:
+        """CQP per-type QP ladder (x265 ip/pb factor 1.4/1.3 analog,
+        ratecontrol.cpp CQP path: I ~ qp-3, P = qp, non-ref B ~ qp+3)."""
+        p = self.param
+        if p.lossless:
+            return p.qp
+        zone = self.rc.zone_for()
+        if zone is not None and "q" in zone:
+            return max(0, min(51, zone["q"]))
+        if slice_type == SLICE_I:
+            return max(0, p.qp - 3)
+        if slice_type == SLICE_B:
+            return min(51, p.qp + 3)
+        return p.qp
+
+    def _frame_stats(self, frame, recon, slice_type, qp, bits, poc,
+                     decisions=None):
+        """Per-frame quality/bit accounting (x265 x265_frame_stats /
+        csvlog_frame analog, api.cpp:1284)."""
+        p = self.param
+        st = {
+            "poc": poc,
+            "type": {SLICE_I: "I", SLICE_P: "P", SLICE_B: "B"}[slice_type],
+            "qp": qp,
+            "bits": bits,
+            "psnr_y": 0.0, "psnr_u": 0.0, "psnr_v": 0.0, "ssim": 0.0,
+        }
+        if p.csv_log_level >= 2 and decisions is not None:
+            # x265 csv-log-level 2: per-frame analysis breakdown
+            # (api.cpp:1284 csvlog extended columns, re-imagined as CU
+            # class statistics from the decision tensors)
+            cl = decisions.cu_log2_map
+            tot = cl.size
+            if decisions.inter8 is not None:
+                inter = float(decisions.inter8.astype(bool).mean())
+            else:
+                inter = 0.0
+            st["cu_inter_pct"] = round(100.0 * inter, 2)
+            st["cu_intra_pct"] = round(100.0 * (1.0 - inter), 2)
+            st["avg_cu_size"] = round(float((1 << cl).mean()), 1)
+            for lg in (3, 4, 5, 6):
+                st[f"cu{1 << lg}_pct"] = round(
+                    100.0 * float((cl == lg).mean()), 2)
+        if p.psnr_metrics:            # x265 --psnr/--ssim (off by default:
+            # host numpy over whole planes)
+            from x265_tpu_torch.utils.metrics import psnr, ssim
+            rec = tuple(np.asarray(x) for x in recon)
+            st["psnr_y"] = psnr(frame[0], rec[0], p.bit_depth)
+            st["psnr_u"] = psnr(frame[1], rec[1], p.bit_depth)
+            st["psnr_v"] = psnr(frame[2], rec[2], p.bit_depth)
+            st["ssim"] = ssim(frame[0], rec[0], p.bit_depth)
+        self.frame_stats.append(st)
+        self._emitted.add(self._disp_idx(poc))
+        if self.recon_sink is not None:
+            self.recon_sink(self._disp_idx(poc),
+                            tuple(np.asarray(x) for x in recon))
+
+    def _aud(self, slice_type: int) -> bytes:
+        """Access unit delimiter NAL (--aud; 7.3.2.5)."""
+        if not self.param.aud:
+            return b""
+        from x265_tpu_torch.hevc.bitstream import BitWriter, NAL_AUD
+        bw = BitWriter()
+        # pic_type: 0 = I only, 1 = I/P, 2 = I/P/B
+        bw.write({SLICE_I: 0, SLICE_P: 1, SLICE_B: 2}[slice_type], 3)
+        bw.byte_align_with_ones()
+        return annexb([make_nal(NAL_AUD, bw.data())])
+
+    def _hrd_sei(self, slice_type: int, poc: int = -1) -> bytes:
+        """Per-AU HRD timing SEIs (D.3.2/D.3.3): buffering_period at each
+        IDR, pic_timing on every picture. Delays use the simplified
+        fixed-rate model (one CPB, delay unit = one AU tick); output
+        delays are the reorder-depth bound, not an exact DPB schedule.
+        With --frame-dup the pic_timing additionally carries pic_struct
+        (doubling/tripling for pictures whose duplicates were dropped)."""
+        ffi = self.sps.frame_field_info
+        hrd = self.sps.hrd_bitrate > 0
+        if not hrd and not ffi:
+            return b""
+        from x265_tpu_torch.hevc.sei import buffering_period_sei, pic_timing_sei
+        out = b""
+        if hrd and slice_type == SLICE_I:
+            d = int(90000 * 0.9 * self.sps.hrd_cpb_size
+                    / self.sps.hrd_bitrate)
+            out += annexb([buffering_period_sei(d)])
+            self._au_since_bp = 0
+        n = getattr(self, "_au_since_bp", 0)
+        reorder = self.sps.num_reorder_pics
+        dpb_delay = 0 if slice_type == SLICE_B else reorder + 1
+        ps = (self._pic_struct.pop(self._disp_idx(poc), 0)
+              if (ffi and poc >= 0) else (0 if ffi else None))
+        out += annexb([pic_timing_sei(max(0, n - 1) if n else 0,
+                                      dpb_delay, pic_struct=ps,
+                                      with_delays=hrd)])
+        self._au_since_bp = n + 1
+        return out
+
+    def _dhdr10_sei(self, poc: int, slice_type: int) -> bytes:
+        """HDR10+ (ST 2094-40) prefix SEI for this picture (x265
+        --dhdr10-info, dynamicHDR10/hdr10plus.h). Metadata is indexed by
+        display order; with --dhdr10-opt the SEI is emitted only on
+        keyframes and when the tone-mapping payload changes (x265's
+        hdr10plus-opt behavior)."""
+        if not self._dhdr10:
+            return b""
+        idx = self._disp_idx(poc)
+        if idx >= len(self._dhdr10):
+            return b""
+        from x265_tpu_torch.hevc.dhdr10 import dhdr10_sei, pack_st2094_40
+        meta = self._dhdr10[idx]
+        if self.param.dhdr10_opt and slice_type != SLICE_I:
+            payload = pack_st2094_40(meta)
+            if payload == self._dhdr10_last:
+                return b""
+            self._dhdr10_last = payload
+        elif self.param.dhdr10_opt:
+            self._dhdr10_last = pack_st2094_40(meta)
+        return annexb([dhdr10_sei(meta)])
+
+    def _dovi_rpu(self, poc: int) -> bytes:
+        """The display picture's Dolby Vision RPU as a NAL_UNSPEC62 unit
+        at the end of the AU (DV bitstream carriage)."""
+        if not self._dovi_rpus:
+            return b""
+        idx = self._disp_idx(poc)
+        if idx >= len(self._dovi_rpus):
+            return b""
+        unit = self._dovi_rpus[idx]
+        if not (len(unit) >= 2 and (unit[0] >> 1) & 0x3F == 62):
+            from x265_tpu_torch.hevc.bitstream import make_nal
+            unit = make_nal(62, unit)
+        return annexb([unit])
+
+    def _hash_sei(self, recon) -> bytes:
+        """Decoded-picture-hash suffix SEI (MD5) of the loop-filtered
+        recon (x265 frameencoder.cpp:1167)."""
+        if self.param.decoded_picture_hash != 1:
+            return b""
+        from x265_tpu_torch.hevc.sei import decoded_picture_hash_sei
+        return annexb([decoded_picture_hash_sei(
+            tuple(np.asarray(x) for x in recon), self.param.bit_depth)])
+
+    def _disp_idx(self, poc: int) -> int:
+        """Display (input) index of a POC — tracks --frame-dup drops."""
+        return self._input_idx.get(poc, self._gop_base + poc)
+
+
+
+    # -- encoder query/control API (x265.h:2108-2186 analogs) --
+
+    def get_slicetype_poc_and_scenecut(self):
+        """x265_encoder_get_slicetype_poc_and_scenecut: slice type, POC
+        and scenecut state of the most recently output picture."""
+        if not self.frame_stats:
+            return None
+        st = self.frame_stats[-1]
+        return {"slice_type": st["type"], "poc": st["poc"],
+                "scenecut": self._disp_idx(st["poc"])
+                in self._scenecut_frames}
+
+    def get_ref_frame_list(self):
+        """x265_encoder_get_ref_frame_list: POCs of the pictures the
+        next P anchor would reference (L0, nearest first), plus the
+        B-pyramid mid reference when alive."""
+        l0 = [poc for (poc, _rec) in self.anchors]
+        l1 = []
+        if getattr(self, "_bref_recon", None) is not None:
+            l1 = [max(l0) + 1] if l0 else []
+        return {"l0": l0, "l1": l1}
+
+
+
+
+
+    def get_stats(self):
+        """x265_encoder_get_stats analog: global summary."""
+        n = len(self.frame_stats)
+        if n == 0:
+            return {"frames": 0}
+        fps = self.param.fps_num / max(1, self.param.fps_den)
+        tot_bits = sum(s["bits"] for s in self.frame_stats)
+        by_type = {}
+        for t in ("I", "P", "B"):
+            sub = [s for s in self.frame_stats if s["type"] == t]
+            if sub:
+                by_type[t] = {
+                    "count": len(sub),
+                    "avg_qp": sum(s["qp"] for s in sub) / len(sub),
+                    "avg_bits": sum(s["bits"] for s in sub) / len(sub),
+                    "avg_psnr_y": sum(s["psnr_y"] for s in sub) / len(sub),
+                }
+        out = {
+            "frames": n,
+            "bitrate_kbps": tot_bits * fps / n / 1000.0,
+            "by_type": by_type,
+        }
+        if self.param.psnr_metrics:
+            out["global_psnr_y"] = sum(s["psnr_y"]
+                                       for s in self.frame_stats) / n
+            out["global_ssim"] = sum(s["ssim"] for s in self.frame_stats) / n
+        return out
+
+    def _encode_intra_frame(self, y, cb, cr, decisions=None, qp=None,
+                            poc=0, nal_type=NAL_IDR_W_RADL,
+                            keep_pocs=()) -> bytes:
+        p = self.param
+        if qp is None:
+            qp = self._slice_qp(SLICE_I)
+        sh = SliceHeader(first_slice_in_pic=True, slice_type=SLICE_I, qp=qp)
+        if nal_type != NAL_IDR_W_RADL:       # CRA: POC + keep-alive RPS
+            sh.pic_order_cnt_lsb = poc & self._poc_mask
+            sh.rps_in_sps = False
+            sh.short_term_rps = ShortTermRPS(
+                num_negative=len(keep_pocs),
+                delta_poc_s0=[k - poc for k in keep_pocs],
+                used_s0=[False] * len(keep_pocs))
+        if decisions is None:
+            decisions = self._intra_decisions(y)
+        slice_data, recon = self._inter_slice_data(
+            (y, cb, cr), sh, decisions, ([], []), ((), ()), poc, SLICE_I)
+        self._record_colmv(decisions, ((), ()), poc)
+        self._last_recon = recon
+        rp = b""
+        if p.idr_recovery_sei:
+            # --idr-recovery-sei: recovery point at every keyframe
+            from x265_tpu_torch.hevc.sei import recovery_point_sei
+            rp = annexb([recovery_point_sei(0)])
+        au = (self._aud(SLICE_I) + self._hrd_sei(SLICE_I, poc) + rp
+              + self._dhdr10_sei(poc, SLICE_I)
+              + self._assemble_slices(slice_data, sh, nal_type)
+              + self._hash_sei(recon) + self._dovi_rpu(poc))
+        self._frame_stats((y, cb, cr), recon, SLICE_I, sh.qp,
+                          len(au) * 8, poc, decisions)
+        return au
+
+
+    def _assemble_slices(self, payload, sh, nal_type) -> bytes:
+        """One or many slice NALs from _inter_slice_data's payload."""
+        if isinstance(payload, (bytes, bytearray)):
+            hdr = write_slice_header(sh, self.sps, self.pps, nal_type)
+            return annexb([make_nal(nal_type, hdr.data() + payload)])
+        out = b""
+        for (sh_i, data) in payload:
+            hdr = write_slice_header(sh_i, self.sps, self.pps, nal_type)
+            out += annexb([make_nal(nal_type, hdr.data() + data)])
+        return out
+
+
+
+    def _intra_decisions(self, y) -> FrameDecisions:
+        from x265_tpu_torch.models.intra_frame import decide_intra_frame_tpu
+        p = self.param
+        cu_log2 = 4 if p.ctb_log2 >= 4 else p.ctb_log2
+        return decide_intra_frame_tpu(
+            np.asarray(y), p.width, p.height, cu_log2=cu_log2,
+            fast=p.fast_intra, psy=float(p.psy_rd), device=self.device)
+
+    def _encode_p_frame(self, frame, poc, anchors, qp=None) -> bytes:
+        """anchors: retained reference anchors, nearest first (the L0
+        list; DPB::prepareEncode + computeRPS analog, dpb.cpp:126)."""
+        p = self.param
+        y, cb, cr = frame
+        if qp is None:
+            qp = self._slice_qp(SLICE_P)
+        sh = SliceHeader(
+            first_slice_in_pic=True,
+            slice_type=SLICE_P,
+            qp=qp,
+            pic_order_cnt_lsb=poc & self._poc_mask,
+            rps_in_sps=False,
+            short_term_rps=ShortTermRPS(
+                num_negative=len(anchors),
+                delta_poc_s0=[a[0] - poc for a in anchors],
+                used_s0=[True] * len(anchors)),
+            num_ref_idx_l0_active=len(anchors),
+            max_num_merge_cand=max(1, min(5, p.max_merge)),
+        )
+        refs_l0 = [a[1] for a in anchors]
+        pocs_l0 = tuple(a[0] for a in anchors)
+        decisions = self._p_decisions(y, refs_l0, qp, frame=(y, cb, cr))
+        slice_data, recon = self._inter_slice_data(
+            (y, cb, cr), sh, decisions, (refs_l0, []),
+            (pocs_l0, ()), poc, SLICE_P)
+        self._record_colmv(decisions, (pocs_l0, ()), poc)
+        self._last_recon = recon
+        au = (self._aud(SLICE_P) + self._hrd_sei(SLICE_P, poc)
+              + self._dhdr10_sei(poc, SLICE_P)
+              + self._assemble_slices(slice_data, sh, NAL_TRAIL_R)
+              + self._hash_sei(recon) + self._dovi_rpu(poc))
+        self._frame_stats((y, cb, cr), recon, SLICE_P, sh.qp,
+                          len(au) * 8, poc, decisions)
+        return au
+
+
+    def _record_colmv(self, decisions, ref_poc, poc) -> None:
+        """Store this picture's 16x16-compressed motion field for later
+        TMVP use (spec MV storage compression, 8.5.3.2.7)."""
+        from x265_tpu_torch.hevc.inter_tools import ColCtx
+        p = self.param
+        h16 = (p.height + 15) // 16
+        w16 = (p.width + 15) // 16
+        if decisions.inter8 is None or decisions.dir8 is None:
+            self._colmv[poc] = ColCtx(
+                poc, np.zeros((h16, w16), np.int32),
+                np.zeros((h16, w16, 2, 2), np.int32),
+                np.zeros((h16, w16, 2), np.int32))
+            return
+        inter16 = decisions.inter8[::2, ::2].astype(np.int32)
+        dir16 = np.where(inter16 > 0, decisions.dir8[::2, ::2], 0)
+        mv16 = np.asarray(decisions.mv8)[::2, ::2].copy()
+        refpoc16 = np.zeros((dir16.shape[0], dir16.shape[1], 2), np.int32)
+        if ref_poc[0]:
+            pocs0 = np.asarray(ref_poc[0], dtype=np.int32)
+            r16 = (np.asarray(decisions.ref8)[::2, ::2]
+                   if decisions.ref8 is not None
+                   else np.zeros(dir16.shape, np.int32))
+            refpoc16[..., 0] = pocs0[np.clip(r16, 0, len(pocs0) - 1)]
+        if ref_poc[1]:
+            refpoc16[..., 1] = ref_poc[1][0]
+        self._colmv[poc] = ColCtx(poc, dir16[:h16, :w16],
+                                  mv16[:h16, :w16],
+                                  refpoc16[:h16, :w16])
+        if len(self._colmv) > 12:      # bound the store (DPB-ish size)
+            for k in sorted(self._colmv)[:len(self._colmv) - 12]:
+                if k != poc:
+                    del self._colmv[k]
+
+
+
+
+
+
+    def _inter_slice_data(self, frame, sh, decisions, refs, ref_poc, poc,
+                          slice_type):
+        """Encode slice data (I/P) with the native C++ finalizer; for P
+        slices the inter CUs' MC/transform/quant/recon come precomputed
+        from the device (models/inter_residual.build_inter_pre) and the
+        writer only emits their bins. Returns (bytes, recon FramePlanes)."""
+        from x265_tpu_torch import native
+        from x265_tpu_torch.utils.profiling import scope
+        p = self.param
+        y, cb, cr = frame
+        # TMVP (8.5.3.2.7): collocated picture is L0[0] for P; IDR clears
+        # the store
+        col = None
+        if slice_type == SLICE_I:
+            self._colmv.clear()
+        elif p.tmvp:
+            sh.collocated_from_l0 = True
+            if ref_poc[0]:
+                col = self._colmv.get(ref_poc[0][0])
+        sh.temporal_mvp_enabled = col is not None
+        self._last_analysis = decisions
+        pad = 80
+        refs_padded = tuple(
+            [self._pad_ref(planes, pad) for planes in lst]
+            for lst in refs)   # up to 4 refs per list
+        pre = None
+        if slice_type != SLICE_I:
+            from x265_tpu_torch.models.inter_residual import build_inter_pre
+            with scope("tpu_residual"):
+                pre = build_inter_pre(
+                    (np.asarray(y), np.asarray(cb), np.asarray(cr)),
+                    decisions, refs_padded, sh.qp, p, None,
+                    self.pps.sign_data_hiding, p.rdoq_level,
+                    slice_type=slice_type, device=self.device)
+            if pre is not None:
+                decisions.tusplit8 = pre.get("tusplit8")
+        # the native walk reads reference PIXELS only for inter CUs
+        # not covered by the device residual tensors (has8 == 0);
+        # when coverage is total the host never materializes the
+        # padded references at all
+        need_host_refs = slice_type != SLICE_I and (
+            pre is None
+            or (decisions.inter8 is not None
+                and bool((decisions.inter8.astype(bool)
+                          & (pre["has8"] == 0)).any())))
+        if need_host_refs:
+            refs_native = tuple(
+                [self._host_padded_ref(r, pad) for r in lst]
+                for lst in refs_padded)
+        else:
+            zp = self._zero_padded_ref(pad)
+            refs_native = tuple([zp] * len(lst) for lst in refs_padded)
+        with scope("finalize"):
+            slice_data, recon, _cbf4, _qp_actual = native.encode_slice_px(
+                np.asarray(y), np.asarray(cb), np.asarray(cr),
+                decisions.cu_log2_map, decisions.luma_mode8,
+                decisions.chroma_mode8, decisions.inter8, decisions.dir8,
+                decisions.mv8, slice_type, sh.max_num_merge_cand,
+                refs_native, ref_poc, poc, pad,
+                p.ctb_log2, p.min_cb_log2, sh.qp, False,
+                self.pps.sign_data_hiding, p.intra_smoothing,
+                p.cb_qp_offset, p.cr_qp_offset,
+                qp_map=decisions.qp_map,
+                bit_depth=p.bit_depth, ref8=decisions.ref8,
+                rdoq_level=0, col=col,
+                col_from_l0=int(sh.collocated_from_l0),
+                pre=pre, tu_inter_depth=p.tu_inter_depth)
+        # the recon is the next pictures' reference: one upload, then the
+        # search and MC layouts are derived and cached on the device
+        return slice_data, FramePlanes(host=recon, bd=p.bit_depth,
+                                       device=self.device)
+
+    def _adopt_coherent(self, y, refs0, refs1, dir_blk, mv_blk, ref_blk,
+                        inter_blk, satd_now, bits_now, lam, qp):
+        """Decision-stage merge/skip emulation (x265 checkMerge2Nx2N,
+        analysis.cpp:1914, recast as one batched dispatch): evaluate the
+        frame-dominant motion tuples for every block and adopt one where
+        the AMVP->merge/skip rate saving beats the SATD loss. Uniform
+        regions then share EXACT motion, so the writer's merge detection
+        chains across them and the 32/64 promotions fire.
+
+        All arrays are at the 16x16 block grid. Returns possibly-updated
+        (dir_blk, mv_blk, ref_blk, satd_blk)."""
+        from x265_tpu_torch.engine.me import dominant_tuples, tuple_satd
+        p = self.param
+        cands = dominant_tuples(dir_blk, mv_blk, ref_blk, inter_blk)
+        if not cands:
+            return dir_blk, mv_blk, ref_blk, satd_now
+        sc = tuple_satd(y, refs0, refs1, cands, p.width, p.height,
+                        R=p.me_range, bit_depth=p.bit_depth,
+                        device=self.device)
+        k = np.argmin(sc, axis=0)
+        s_c = np.take_along_axis(sc, k[None], 0)[0].astype(np.float32)
+        lam = max(float(lam), 1e-3)
+        # rate rule: candidate codes as skip/merge (~3 bits) vs the
+        # current choice's AMVP syntax; +8 bits of slack for the CU-merge
+        # cascade the coherent region enables (promotion to 32/64 saves
+        # the neighbours' syntax too)
+        adopt = inter_blk & (
+            s_c <= satd_now + lam * (np.maximum(bits_now - 3.0, 0.0) + 8.0))
+        if not adopt.any():
+            return dir_blk, mv_blk, ref_blk, satd_now
+        carr = np.array([[c[0], c[1], c[3][0], c[3][1], c[4][0], c[4][1]]
+                         for c in cands], np.int32)
+        ck = carr[k]                                   # [nby,nbx,6]
+        dir_out = np.where(adopt, ck[..., 0], dir_blk).astype(np.int32)
+        ref_out = np.where(adopt, ck[..., 1], ref_blk).astype(np.int32)
+        mv_out = mv_blk.copy()
+        mv_out[adopt, 0, 0] = ck[adopt, 2]
+        mv_out[adopt, 0, 1] = ck[adopt, 3]
+        mv_out[adopt, 1, 0] = ck[adopt, 4]
+        mv_out[adopt, 1, 1] = ck[adopt, 5]
+        satd_out = np.where(adopt, s_c, satd_now).astype(np.float32)
+        return dir_out, mv_out, ref_out, satd_out
+
+
+    def _merge_cu32(self, dec, satd16=None, qp=None) -> None:
+        """Bottom-up CU merging: promote 2x2 groups of 16x16 blocks to one
+        32x32 CU when they carry identical decisions — one skip/merge per
+        32 instead of four (the quadtree dial of Analysis::compressCTU;
+        decisions-only, the finalizer already walks any CU size)."""
+        p = self.param
+        if p.ctb_log2 < 5:
+            return
+        h8, w8 = dec.cu_log2_map.shape
+        h32, w32 = h8 // 4, w8 // 4
+        if h32 == 0 or w32 == 0:
+            return
+
+        def grp(m):
+            """[h8,w8]->[h32,w32,16] group view (trailing dims kept)."""
+            t = m[:h32 * 4, :w32 * 4]
+            t = t.reshape(h32, 4, w32, 4, *m.shape[2:])
+            return np.moveaxis(t, 1, 2).reshape(h32, w32, 16, *m.shape[2:])
+
+        all16 = (grp(dec.cu_log2_map) == 4).all(axis=2)
+        if dec.inter8 is not None:
+            inter = grp(dec.inter8.astype(bool)).all(axis=2)
+            d = grp(dec.dir8)
+            same_dir = (d == d[:, :, :1]).all(axis=2)
+            mv = grp(dec.mv8)
+            same_mv = (mv == mv[:, :, :1]).all(axis=(2, 3, 4))
+            r = (grp(dec.ref8) if dec.ref8 is not None
+                 else np.zeros_like(d))
+            same_ref = (r == r[:, :, :1]).all(axis=2)
+            ok_inter = all16 & inter & same_dir & same_mv & same_ref
+            if satd16 is not None and qp is not None:
+                # promote only skip-likely groups: a 32x32 TU re-quantizes
+                # the residual differently, so uniform motion alone is
+                # bit-neutral; low energy => the 32 CU skips and the
+                # saved per-CU syntax is a strict win
+                g16 = satd16[:h32 * 2, :w32 * 2].reshape(
+                    h32, 2, w32, 2).sum(axis=(1, 3))
+                qstep = 2.0 ** ((qp - 4) / 6.0)
+                # loose gate: a merged 32 CU saves 3 CUs' syntax even
+                # when it carries coefficients; only clearly textured
+                # groups keep the finer tree
+                ok_inter &= g16 < 192.0 * qstep
+        else:
+            ok_inter = np.zeros((h32, w32), dtype=bool)
+        # heuristic: merge only uniform planar/DC (32x32 prediction
+        # of flat areas is near-identical to four 16s)
+        modes = grp(dec.luma_mode8)
+        same_mode = (modes == modes[:, :, :1]).all(axis=2)
+        flat = modes[:, :, 0] <= 1
+        if dec.inter8 is not None:
+            not_inter = ~grp(dec.inter8.astype(bool)).any(axis=2)
+        else:
+            not_inter = np.ones((h32, w32), dtype=bool)
+        ok_intra = all16 & same_mode & flat & not_inter
+        ok = ok_inter | ok_intra
+        if ok.any():
+            up = np.repeat(np.repeat(ok, 4, 0), 4, 1)
+            dec.cu_log2_map[:h32 * 4, :w32 * 4][up] = 5
+
+    def _merge_cu64(self, dec, satd16=None, qp=None) -> None:
+        """Promote 2x2 groups of 32x32 inter CUs to one 64x64 CU when
+        they carry identical motion — one skip/merge per CTB instead of
+        four (x265 codes these as depth-0 skip CUs, analysis.cpp:1146).
+        Residual coding still works (implicit RQT split to 4x32 TUs),
+        but the energy gate keeps textured regions on the finer tree."""
+        p = self.param
+        if p.ctb_log2 < 6 or dec.inter8 is None:
+            return
+        h8, w8 = dec.cu_log2_map.shape
+        h64, w64 = h8 // 8, w8 // 8
+        if h64 == 0 or w64 == 0:
+            return
+
+        def grp(m):
+            t = m[:h64 * 8, :w64 * 8]
+            t = t.reshape(h64, 8, w64, 8, *m.shape[2:])
+            return np.moveaxis(t, 1, 2).reshape(h64, w64, 64, *m.shape[2:])
+
+        all32 = (grp(dec.cu_log2_map) == 5).all(axis=2)
+        inter = grp(dec.inter8.astype(bool)).all(axis=2)
+        d = grp(dec.dir8)
+        same_dir = (d == d[:, :, :1]).all(axis=2)
+        mv = grp(dec.mv8)
+        same_mv = (mv == mv[:, :, :1]).all(axis=(2, 3, 4))
+        r = (grp(dec.ref8) if dec.ref8 is not None else np.zeros_like(d))
+        same_ref = (r == r[:, :, :1]).all(axis=2)
+        ok = all32 & inter & same_dir & same_mv & same_ref
+        if satd16 is not None and qp is not None:
+            g16 = satd16[:h64 * 4, :w64 * 4].reshape(
+                h64, 4, w64, 4).sum(axis=(1, 3))
+            qstep = 2.0 ** ((qp - 4) / 6.0)
+            ok &= g16 < 640.0 * qstep
+        if not ok.any():
+            return
+        up = np.repeat(np.repeat(ok, 8, 0), 8, 1)
+        dec.cu_log2_map[:h64 * 8, :w64 * 8][up] = 6
+
+
+    @staticmethod
+    def _to8(grid, h8, w8, rep):
+        return np.ascontiguousarray(
+            np.repeat(np.repeat(grid, rep, 0), rep, 1)[:h8, :w8])
+
+
+    def _pad_ref(self, planes, pad=80):
+        """A reference as the device-resident FramePlanes every consumer
+        takes: the residual pipeline and the motion search derive their
+        padded layouts ON DEVICE (FramePlanes.dev_padded, dev_luma_me),
+        the native writer's host layout is materialized lazily
+        (_host_padded_ref). The encoder's own anchors already are
+        FramePlanes; a plain (y, cb, cr) host picture is wrapped."""
+        if isinstance(planes, FramePlanes):
+            return planes
+        return FramePlanes(host=planes, bd=self.param.bit_depth,
+                           device=self.device)
+
+    @staticmethod
+    def _host_padded_ref(r, pad=80):
+        """Host int16 edge-padded planes of a reference, for the inter
+        CUs the native writer predicts itself; cached on the reference,
+        so the copy lives exactly as long as the anchor does."""
+        return r.host_padded(pad)
+
+    def _zero_padded_ref(self, pad=80):
+        """Shared all-zero padded planes: stand-in for references the
+        native walk provably never reads (every inter CU is covered by
+        the device-precomputed residual tensors, has8 == 1)."""
+        if self._zero_ref is None or self._zero_ref[0] != pad:
+            p = self.param
+            hc, wc = p.height // 2 + pad, p.width // 2 + pad
+            self._zero_ref = (pad, (
+                np.zeros((p.height + 2 * pad, p.width + 2 * pad), np.int16),
+                np.zeros((hc, wc), np.int16), np.zeros((hc, wc), np.int16)))
+        return self._zero_ref[1]
+
+    def _intra_analysis_with_cost(self, y):
+        from x265_tpu_torch.models.intra_frame import (
+            decide_intra_frame_tpu_with_cost)
+        p = self.param
+        cu_log2 = 4 if p.ctb_log2 >= 4 else p.ctb_log2
+        return decide_intra_frame_tpu_with_cost(
+            np.asarray(y), p.width, p.height, cu_log2=cu_log2,
+            fast=p.fast_intra, psy=float(p.psy_rd), device=self.device)
+
+    @staticmethod
+    def _me_entry(r):
+        """Normalize a reference entry for the motion search: device
+        handles (FramePlanes/MELuma) pass through (padded on device);
+        host pictures reduce to their luma plane."""
+        if isinstance(r, (FramePlanes, MELuma)):
+            return r
+        if isinstance(r, (tuple, list)) and len(r) == 3:
+            return np.asarray(r[0])
+        return np.asarray(r)
+
+    def _p_decisions(self, y, refs, qp=None, frame=None) -> FrameDecisions:
+        """Inter/intra split + MVs + ref choice for a P frame: one fused
+        device pass covers all refs' integer search + subpel +
+        MVP-relative re-cost + smoothing (the pme bonded group becomes an
+        argmin over the ref axis; x265 motion.cpp:739 per-PU loop)."""
+        from x265_tpu_torch.engine.me import motion_fused
+        from x265_tpu_torch.utils.profiling import scope
+
+        p = self.param
+        S = 16
+        qpv = qp if qp is not None else self._slice_qp(SLICE_P)
+        lam = float(np.sqrt(0.85 * 2.0 ** ((qpv - 12) / 3.0)))
+        with scope("analysis"):
+            dec, icost = self._intra_analysis_with_cost(y)
+        ref_ys = [self._me_entry(r) for r in refs]
+        with scope("motion"):
+            mv, cost, satd, _ = motion_fused(
+                np.asarray(y), ref_ys, p.width, p.height, S=S,
+                R=p.me_range, qp=qpv, subme=max(1, p.sub_me),
+                bit_depth=p.bit_depth,
+                slack=48.0 if p.early_skip else 24.0,
+                force_dense=p.me_method in ("full", "star", "sea"),
+                device=self.device)
+        cost = cost + lam * 2.0 * np.arange(len(ref_ys),
+                                            dtype=np.float32)[:, None, None]
+        best_ref = np.argmin(cost, axis=0).astype(np.int32)
+        best_cost = np.take_along_axis(cost, best_ref[None], 0)[0]
+        best_mv = np.take_along_axis(
+            mv, best_ref[None, ..., None], 0)[0]
+        satd16 = np.take_along_axis(satd, best_ref[None], 0)[0]
+        # intra pays mode bits AND its SATD is optimistic (analysis
+        # neighbors are source pixels, the coded prediction's are recon) —
+        # without a penalty half a panning frame goes intra
+        # (x265 analog: checkIntraInInter's mode-bit cost, search.cpp:1291)
+        icost_adj = icost * 1.125 + lam * 12.0
+        inter_blk = best_cost < icost_adj
+        h8, w8 = p.height >> 3, p.width >> 3
+        rep = S >> 3
+        nby, nbx = best_mv.shape[:2]
+        mv2 = np.zeros((nby, nbx, 2, 2), dtype=np.int32)
+        mv2[:, :, 0] = best_mv
+        dir_blk = np.ones((nby, nbx), np.int32)
+        if p.rd_level >= 2:
+            bits_now = ((best_cost - satd16) / max(lam, 1e-3) + 4.0)
+            dir_blk, mv2, best_ref, satd16 = self._adopt_coherent(
+                np.asarray(y), ref_ys, [], dir_blk, mv2, best_ref,
+                inter_blk, satd16.astype(np.float32), bits_now, lam, qpv)
+        dec.inter8 = self._to8(inter_blk, h8, w8, rep)
+        dec.dir8 = self._to8(dir_blk, h8, w8, rep)
+        dec.mv8 = self._to8(mv2, h8, w8, rep)
+        dec.ref8 = self._to8(best_ref, h8, w8, rep)
+        if p.rd_level >= 2:      # the quadtree dial (x265 --rd)
+            with scope("rd_promote"):
+                self._merge_cu32(dec, satd16, qpv)
+                self._merge_cu64(dec, satd16, qpv)
+        return dec
+
+
+
+
+
+    def encode(self, frames) -> bytes:
+        """Encode an iterable of (y, cb, cr) frames; returns full stream."""
+        out = [self.headers()]
+        for (y, cb, cr) in frames:
+            out.append(self.encode_frame(y, cb, cr))
+        out.append(self.flush())
+        self.close()
+        return b"".join(out)
+

@@ -1,0 +1,556 @@
+"""Batched motion estimation — the re-imagining of x265's serial
+MotionEstimate::motionEstimate loop (reference motion.cpp:739, subpel
+refine motion.cpp:624 area) as dense frame-level computation:
+
+- integer search: a dense displacement sweep of shifted-frame SAD
+  reductions (2-level hierarchical beyond +-24), with a lambda*mvbits
+  penalty per displacement;
+- subpel: 16 quarter-pel phase planes built once per frame by separable
+  8-tap interpolation, then refinement rounds evaluate 9 candidates per
+  block with batched SATD + mv cost.
+
+The window gathers (tile_gather, tile_gather_planes) and the SATD are
+hand-written CUDA kernels (ops/cuda_mc.py, ops/cuda_kernels.py); the
+rest is plain PyTorch. Ties keep the FIRST minimal candidate everywhere,
+as the scans and argmins of the JAX package do.
+
+MV cost model: quarter-pel exp-Golomb-ish bit estimate against the
+neighbourhood-median predictor.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from x265_tpu_torch.models.intra_frame import first_argmin
+from x265_tpu_torch.ops.cuda_kernels import satd as _satd_kernel
+from x265_tpu_torch.ops.cuda_mc import tile_gather_planes
+from x265_tpu_torch.ops.ref.interp import LUMA_FILTERS
+from x265_tpu_torch.utils.device import resolve_device
+
+
+def _mv_bits(v: np.ndarray) -> np.ndarray:
+    """~exp-Golomb bit count of a quarter-pel mv component."""
+    a = np.abs(v).astype(np.int64)
+    return (2 * np.floor(np.log2(2 * a + 1)) + 1).astype(np.float32)
+
+
+def _mv_bits_t(a: torch.Tensor) -> torch.Tensor:
+    """_mv_bits for a non-negative integer tensor, by integer bit length:
+    2*floor(log2(2a+1)) + 1 with floor(log2(x)) counted as the number of
+    thresholds 2^k <= x (exact; equal to the float form, proven by test
+    over the whole mv range). Returns float32."""
+    x = 2 * a.to(torch.int32) + 1
+    lg = torch.zeros_like(x)
+    for k in range(1, 24):
+        lg += (x >= (1 << k)).to(torch.int32)
+    return (2 * lg + 1).to(torch.float32)
+
+
+def satd8_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """SATD over [N, S, S] blocks (S multiple of 8) -> [N] int32 (sa8d-
+    style: sum |H8 D H8^T| / 4 per 8x8 sub-block; x265 pixel.cpp sa8d).
+    Served by the SATD kernel on a CUDA device."""
+    return _satd_kernel(a.to(torch.int32).contiguous(),
+                        b.to(torch.int32).contiguous())
+
+
+def _downscale2(y: torch.Tensor) -> torch.Tensor:
+    """2x2 mean downscale (the frameInitLowres analog used by HME)."""
+    H, W = y.shape
+    y = y.to(torch.int32)
+    s = y.reshape(H // 2, 2, W // 2, 2).sum(dim=(1, 3), dtype=torch.int32)
+    return (s + 2) >> 2
+
+
+def _local_search(cur_blocks, ref_pad, centers, bxy, lam, S, W_r, pad):
+    """Per-block integer window search around given centers.
+
+    cur_blocks [N,S,S]; ref_pad [H+2*pad, W+2*pad] edge-padded; centers
+    [N,2] integer MVs with |center| <= pad - W_r; bxy [N,2] block (x,y)
+    indices. Evaluates all (2W_r+1)^2 displacements around each center
+    (the x265 refineMV/star-refine analog, motion.cpp:624) in dy-major,
+    dx-minor order, keeping the first minimum -> (mv [N,2], cost [N]).
+    """
+    from x265_tpu_torch.models.inter_residual import gather_src_blocks
+    N = cur_blocks.shape[0]
+    dev = cur_blocks.device
+    cur_blocks = cur_blocks.to(torch.int32)
+    side = S + 2 * W_r
+
+    # top-left of every search patch in padded coords; fetched as one
+    # batched tile gather
+    y0s = bxy[:, 1] * S + centers[:, 1] + pad - W_r
+    x0s = bxy[:, 0] * S + centers[:, 0] + pad - W_r
+    patches = gather_src_blocks(ref_pad, y0s, x0s, side)  # [N, side, side]
+    n = 2 * W_r + 1
+    dxs = torch.arange(n, device=dev, dtype=torch.int32) - W_r
+    bits_x = _mv_bits_t((4 * (centers[:, 0:1] + dxs[None, :])).abs())  # [N,n]
+
+    best_cost = torch.full((N,), float("inf"), dtype=torch.float32,
+                           device=dev)
+    best_d = torch.zeros((N,), dtype=torch.int64, device=dev)
+    for dy in range(n):
+        rows = patches[:, dy:dy + S, :].unfold(2, S, 1)     # [N,S,n,S]
+        sad = (cur_blocks[:, :, None, :] - rows).abs().sum(
+            dim=(1, 3), dtype=torch.int32)                  # [N,n]
+        bits_y = _mv_bits_t((4 * (centers[:, 1] + (dy - W_r))).abs())
+        bits = bits_x + bits_y[:, None]
+        cost = sad.to(torch.float32) + lam * bits
+        k = first_argmin(cost, 1)
+        c = torch.gather(cost, 1, k[:, None])[:, 0]
+        upd = c < best_cost
+        best_cost = torch.where(upd, c, best_cost)
+        best_d = torch.where(upd, dy * n + k, best_d)
+    off = torch.stack([best_d % n - W_r,
+                       torch.div(best_d, n, rounding_mode="floor") - W_r],
+                      dim=-1).to(torch.int32)
+    return centers + off, best_cost
+
+
+def _phase_planes(ref_pad: torch.Tensor, maxv: int = 255) -> torch.Tensor:
+    """[4,4,H+2m,W+2m] pixel-domain quarter-pel planes (int16) from a
+    reference edge-padded by (m+3) left/top and (m+4) right/bottom, so
+    that plane index i maps to integer position i-m (the 8-tap base
+    sample is tap 3). Integer throughout: shifted-slice sums."""
+    f = LUMA_FILTERS                       # [4, 8] numpy ints
+    ref_pad = ref_pad.to(torch.int32)
+    Hp, Wp = ref_pad.shape
+    W_out = Wp - 7
+    H_out = Hp - 7
+    hor = []
+    for p in range(4):
+        acc = torch.zeros((Hp, W_out), dtype=torch.int32,
+                          device=ref_pad.device)
+        for t in range(8):
+            c = int(f[p][t])
+            if c:
+                acc += c * ref_pad[:, t:t + W_out]
+        hor.append(acc)
+    hor = torch.stack(hor)                                 # [4, Hp, W_out]
+    out = []
+    for q in range(4):
+        acc = torch.zeros((4, H_out, W_out), dtype=torch.int32,
+                          device=ref_pad.device)
+        for t in range(8):
+            c = int(f[q][t])
+            if c:
+                acc += c * hor[:, t:t + H_out, :]
+        out.append(acc)
+    out = torch.stack(out)                                 # [4(v),4(h),H,W]
+    out = (out + 2048) >> 12                               # /64/64 rounded
+    return out.clamp_(0, maxv).to(torch.int16)
+
+
+def _gather_phase_blocks(planes, fy, fx, iy, ix, S):
+    """[N, S, S] int32 blocks from [4,4,Hm,Wm] int16 phase planes at
+    per-lane (phase, position); each phase is clipped here, positions
+    by the gather (dynamic_slice clamp semantics)."""
+    P1, P2, Hm, Wm = planes.shape
+    flat = planes.reshape(P1 * P2, Hm, Wm)
+    ridx = (fy.clamp(0, P1 - 1) * P2 + fx.clamp(0, P2 - 1)).to(torch.int32)
+    return tile_gather_planes(flat, ridx.contiguous(),
+                              iy.to(torch.int32).contiguous(),
+                              ix.to(torch.int32).contiguous(), S)
+
+
+def _refine(cur_blocks, planes, mv_q, offsets, lam, mvp_q, S, margin):
+    """One subpel refinement round.
+
+    cur_blocks [N,S,S]; planes [4,4,Hp,Wp] (padded by `margin` int pels);
+    mv_q [N,4] current best quarter-pel MVs + packed block (x, y);
+    offsets [K,2] quarter-pel deltas (0,0 included to keep the
+    incumbent); mvp_q [N,2] the MV predictor the bit cost is measured
+    against. Returns best mv [N,2] and its cost.
+    """
+    N = cur_blocks.shape[0]
+    nbx_arr = mv_q[:, 2]
+    nby_arr = mv_q[:, 3]
+    base = mv_q[:, :2]
+    K = offsets.shape[0]
+
+    # all K offsets as ONE flattened lane batch (one kernel launch)
+    cands = base[None, :, :] + offsets[:, None, :]          # [K,N,2]
+    fx = cands[..., 0] & 3
+    fy = cands[..., 1] & 3
+    ix = (cands[..., 0] >> 2) + (nbx_arr * S + margin)[None, :]
+    iy = (cands[..., 1] >> 2) + (nby_arr * S + margin)[None, :]
+    pred = _gather_phase_blocks(planes, fy.reshape(-1), fx.reshape(-1),
+                                iy.reshape(-1), ix.reshape(-1), S)
+    cur_k = cur_blocks[None].expand(K, N, S, S).reshape(K * N, S, S)
+    satd = satd8_batched(cur_k, pred).to(torch.float32).reshape(K, N)
+    bits = _mv_bits_t((cands - mvp_q[None]).abs()).sum(dim=2)
+    costs = satd + lam * bits                      # [K,N]
+    k = first_argmin(costs, 0)                     # [N]
+    best = torch.gather(cands, 0, k[None, :, None].expand(1, N, 2))[0]
+    cost = costs.amin(dim=0)
+    return best, cost
+
+
+_HALF_OFFS = np.array([(0, 0), (-2, 0), (2, 0), (0, -2), (0, 2),
+                       (-2, -2), (-2, 2), (2, -2), (2, 2)], dtype=np.int32)
+_QUARTER_OFFS = np.array([(0, 0), (-1, 0), (1, 0), (0, -1), (0, 1),
+                          (-1, -1), (-1, 1), (1, -1), (1, 1)], dtype=np.int32)
+
+
+def subpel_rounds(subme: int):
+    """Refinement schedule per --subme tier (x265 subme dial,
+    motion.cpp subpelRefine iterations — re-imagined as batched
+    8-neighbor rounds):
+        <=1: half only          2-3: half + quarter (default)
+        4:   half + 2x quarter  >=5: 2x half + 2x quarter
+    A second round of the same step lets the minimum drift beyond the
+    +-1 neighborhood the single round can reach."""
+    if subme <= 1:
+        return [_HALF_OFFS]
+    if subme <= 3:
+        return [_HALF_OFFS, _QUARTER_OFFS]
+    if subme == 4:
+        return [_HALF_OFFS, _QUARTER_OFFS, _QUARTER_OFFS]
+    return [_HALF_OFFS, _HALF_OFFS, _QUARTER_OFFS, _QUARTER_OFFS]
+
+
+def _eval_fixed(cur_blocks, planes, mv, bxy, S, margin):
+    """SATD of every block at its given quarter-pel MV (one gather)."""
+    fx = mv[:, 0] & 3
+    fy = mv[:, 1] & 3
+    ix = (mv[:, 0] >> 2) + bxy[:, 0] * S + margin
+    iy = (mv[:, 1] >> 2) + bxy[:, 1] * S + margin
+    pred = _gather_phase_blocks(planes, fy, fx, iy, ix, S)
+    return satd8_batched(cur_blocks, pred)
+
+
+def _edge_pad(a: torch.Tensor, p: int) -> torch.Tensor:
+    """Edge-pad the two leading axes of a [H, W, ...] tensor by p."""
+    H, W = a.shape[:2]
+    ry = torch.arange(-p, H + p, device=a.device).clamp_(0, H - 1)
+    rx = torch.arange(-p, W + p, device=a.device).clamp_(0, W - 1)
+    return a[ry][:, rx]
+
+
+def _median3x3_dev(mv):
+    """[nby,nbx,2] int -> per-component 3x3 median (edge-padded), device."""
+    p = _edge_pad(mv, 1)
+    nby, nbx = mv.shape[:2]
+    stack = torch.stack([p[dy:dy + nby, dx:dx + nbx]
+                         for dy in range(3) for dx in range(3)])
+    return torch.sort(stack, dim=0).values[4]
+
+
+def _int_stage(cur, ref_R, mvcost_flat, S, R):
+    """Dense integer search body (one ref). ref_R padded by R. One step
+    per dy covers every dx of that row at once; inside a row the first
+    minimum wins, across rows a strict < keeps the earlier one — the
+    same winner as a displacement-by-displacement scan in dy-major
+    order. int16 differences, int32 block sums."""
+    H, W = cur.shape
+    nby, nbx = H // S, W // S
+    n = 2 * R + 1
+    dev = cur.device
+    cur16 = cur.to(torch.int16)
+    ref16 = ref_R.to(torch.int16)
+    mvc = mvcost_flat.reshape(n, n)
+    best_cost = torch.full((nby, nbx), float("inf"), dtype=torch.float32,
+                           device=dev)
+    best_idx = torch.zeros((nby, nbx), dtype=torch.int64, device=dev)
+    for dy in range(n):
+        win = ref16[dy:dy + H, :].unfold(1, W, 1)           # [H, n, W]
+        ad = (cur16[:, None, :] - win).abs()
+        sad = ad.reshape(nby, S, n, nbx, S).sum(dim=(1, 4),
+                                                dtype=torch.int32)
+        cost = sad.to(torch.float32) + mvc[dy][None, :, None]  # [nby,n,nbx]
+        k = first_argmin(cost, 1)
+        c = torch.gather(cost, 1, k[:, None, :])[:, 0, :]
+        upd = c < best_cost
+        best_cost = torch.where(upd, c, best_cost)
+        best_idx = torch.where(upd, dy * n + k, best_idx)
+    mv = torch.stack([best_idx % n - R,
+                      torch.div(best_idx, n, rounding_mode="floor") - R],
+                     dim=-1).to(torch.int32)
+    return mv
+
+
+def _block_grid(nby, nbx, device):
+    bx, by = np.meshgrid(np.arange(nbx), np.arange(nby))
+    return torch.from_numpy(np.stack(
+        [bx.reshape(-1), by.reshape(-1)], axis=1).astype(np.int32)).to(device)
+
+
+def _to_blocks(plane, nby, nbx, S):
+    return (plane.reshape(nby, S, nbx, S).permute(0, 2, 1, 3)
+            .reshape(nby * nbx, S, S).contiguous())
+
+
+def _motion_fused(cur, refs_big, lam, S, R, subme, bd, do_bi,
+                  slack=24.0, force_dense=False):
+    """cur [H,W] (padded to S multiples); refs_big [nref, H+2P, W+2P]
+    edge-padded by P = R+6. Returns (mv [nref,nby,nbx,2] qpel,
+    cost [nref,nby,nbx] satd+lam*mvpbits, satd [nref,nby,nbx],
+    bi_satd [nby,nbx] (zeros: bi-prediction is not ported yet))."""
+    if do_bi:
+        raise NotImplementedError("bi-prediction search is not ported yet")
+    nref = refs_big.shape[0]
+    H, W = cur.shape
+    nby, nbx = H // S, W // S
+    N = nby * nbx
+    P = R + 6
+    margin = R + 2
+    dev = cur.device
+    cur = cur.to(torch.int32)
+    maxv = (1 << bd) - 1
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=dev)
+    bxy = _block_grid(nby, nbx, dev)
+    cur_blocks = _to_blocks(cur, nby, nbx, S)
+
+    # --- stage 1: integer search (dense <=24, else 2-level HME;
+    # --me full forces the dense sweep at any range) ---
+    mv_int = []
+    if R <= 24 or force_dense:
+        dys, dxs = np.mgrid[-R:R + 1, -R:R + 1]
+        mvcost = torch.from_numpy(
+            (_mv_bits(4 * dxs.ravel()) + _mv_bits(4 * dys.ravel()))
+            .astype(np.float32)).to(dev)
+        for r in range(nref):
+            ref_R = refs_big[r, P - R:P + H + R, P - R:P + W + R]
+            mv_int.append(_int_stage(cur, ref_R, lam * mvcost, S, R))
+    else:
+        from x265_tpu_torch.engine.planes import pad_dev
+        R2 = (R + 1) // 2
+        S2 = S // 2
+        dys, dxs = np.mgrid[-R2:R2 + 1, -R2:R2 + 1]
+        mvcost2 = torch.from_numpy(
+            (_mv_bits(8 * dxs.ravel()) + _mv_bits(8 * dys.ravel()))
+            .astype(np.float32)).to(dev)
+        cur_l = _downscale2(cur)
+        W_r = 7
+        for r in range(nref):
+            rb = refs_big[r]
+            ref_l = _downscale2(rb[P:P + H, P:P + W])
+            mvh = _int_stage(cur_l, pad_dev(ref_l, (R2, R2, R2, R2)),
+                             lam * mvcost2, S2, R2)
+            centers = (mvh * 2).clamp(-(R - W_r), R - W_r).reshape(-1, 2)
+            ref_R = rb[P - R:P + H + R, P - R:P + W + R]
+            mv_loc, _ = _local_search(cur_blocks, ref_R, centers, bxy,
+                                      lam, S, W_r, R)
+            mv_int.append(mv_loc.reshape(nby, nbx, 2))
+
+    # --- stage 2: phase planes + subpel/MVP/smoothing per ref ---
+    rounds = [torch.from_numpy(r).to(dev) for r in subpel_rounds(subme)]
+
+    def refine_ref(planes_r, mv0):
+        # MVP from the integer-search field directly
+        best = mv0.reshape(N, 2) * 4
+        mvp = _median3x3_dev(mv0 * 4).reshape(N, 2)
+        for offs in rounds:
+            best, _ = _refine(cur_blocks, planes_r,
+                              torch.cat([best, bxy], dim=1),
+                              offs, lam, mvp, S, margin)
+        # snap-to-predictor: taking the predictor exactly when its SATD
+        # is within the saved bits lets the writer's merge detection fire
+        satd_mvp = _eval_fixed(cur_blocks, planes_r, mvp, bxy, S, margin)
+        satd_cur = _eval_fixed(cur_blocks, planes_r, best, bxy, S, margin)
+        bits_now = _mv_bits_t((best - mvp).abs()).sum(dim=1)
+        snap = (satd_mvp.to(torch.float32)
+                <= satd_cur.to(torch.float32) + lam * (bits_now + 6.0))
+        best = torch.where(snap[:, None], mvp, best)
+        # 2x2 modal smoothing
+        mvf = best.reshape(nby, nbx, 2)
+        gy, gx = nby // 2, nbx // 2
+        # axis order as in the JAX package (moveaxis(g, 3, 2) and then a
+        # flat reshape): the four "members" of a group are taken from
+        # that flattening, not from the group's own 2x2 blocks. Streams
+        # are compared byte for byte, so the order is kept as it is.
+        g = mvf[:gy * 2, :gx * 2].reshape(gy, 2, gx, 2, 2)
+        g = g.permute(0, 1, 3, 2, 4).reshape(gy, gx, 4, 2)
+        d = (g[:, :, :, None, :] - g[:, :, None, :, :]).abs().sum(dim=(3, 4))
+        mi = first_argmin(d, 2)
+        modal = torch.gather(
+            g, 2, mi[..., None, None].expand(gy, gx, 1, 2))[:, :, 0]
+        cand = modal.repeat_interleave(2, 0).repeat_interleave(2, 1)
+        full = mvf.clone()
+        full[:gy * 2, :gx * 2] = cand
+        satd_mode = _eval_fixed(cur_blocks, planes_r,
+                                full.reshape(N, 2), bxy, S, margin)
+        satd_best = _eval_fixed(cur_blocks, planes_r,
+                                mvf.reshape(N, 2), bxy, S, margin)
+        dsum = (satd_mode - satd_best).reshape(nby, nbx)
+        dsum = dsum[:gy * 2, :gx * 2].reshape(gy, 2, gx, 2).sum(
+            dim=(1, 3), dtype=torch.int32)
+        acc = dsum.to(torch.float32) <= lam * slack
+        accf = acc.repeat_interleave(2, 0).repeat_interleave(2, 1)
+        sel = torch.zeros((nby, nbx), dtype=torch.bool, device=dev)
+        sel[:gy * 2, :gx * 2] = accf
+        mv_out = torch.where(sel[..., None], full, mvf)
+        satd_out = torch.where(sel.reshape(-1), satd_mode, satd_best)
+        bits = _mv_bits_t((mv_out.reshape(N, 2) - mvp).abs()).sum(dim=1)
+        cost_out = satd_out.to(torch.float32) + lam * bits
+        return mv_out, cost_out.reshape(nby, nbx), satd_out.reshape(nby, nbx)
+
+    mvs, costs, satds = [], [], []
+    for r in range(nref):
+        ref_S = refs_big[r, P - margin - 3:P + H + margin + 4,
+                         P - margin - 3:P + W + margin + 4]
+        planes_r = _phase_planes(ref_S, maxv)
+        m, c, s = refine_ref(planes_r, mv_int[r])
+        mvs.append(m)
+        costs.append(c)
+        satds.append(s)
+    bi = torch.zeros((nby, nbx), dtype=torch.int32, device=dev)
+    return torch.stack(mvs), torch.stack(costs), torch.stack(satds), bi
+
+
+def _cur_upload(cur_y, bit_depth, ph, pw, device):
+    """Source luma on the device, padded to block multiples (shared
+    upload: the same plane feeds analysis and residual)."""
+    from x265_tpu_torch.engine.planes import pad_dev
+    from x265_tpu_torch.utils import devcache
+    arr = np.asarray(cur_y)
+    H, W = arr.shape
+    return pad_dev(devcache.src_plane(arr, bit_depth, device),
+                   (0, ph - H, 0, pw - W))
+
+
+def motion_fused(cur_y, ref_ys, width, height, S=16, R=57, qp=32,
+                 subme=2, bit_depth=8, do_bi=False, slack=24.0,
+                 force_dense=False, device=None):
+    """Host wrapper: all refs' motion search for one frame.
+
+    cur_y [H,W]; ref_ys: list of reference luma planes (numpy) or
+    device handles (FramePlanes/MELuma).
+    Returns numpy (mv [nref,nby,nbx,2], cost [nref,nby,nbx], satd, bi).
+    """
+    device = resolve_device(device)
+    ph = -(-height // S) * S
+    pw = -(-width // S) * S
+    P = R + 6
+    refs = torch.stack([_me_ref_upload(r, P, ph, pw, height, width, device)
+                        for r in ref_ys])
+    cur = _cur_upload(cur_y, bit_depth, ph, pw, device)
+    lam = np.float32(np.sqrt(0.85 * 2.0 ** ((qp - 12) / 3.0)))
+    mv, cost, satd, bi = _motion_fused(
+        cur, refs, lam, S, R, max(1, subme), bit_depth, do_bi,
+        float(slack), bool(force_dense))
+    return (mv.cpu().numpy(), cost.cpu().numpy(), satd.cpu().numpy(),
+            bi.cpu().numpy())
+
+
+def _me_ref_upload(r, P, ph, pw, height, width, device):
+    """Search-layout reference (int16): a device-resident handle pads ON
+    DEVICE (FramePlanes/MELuma.dev_luma_me); a host plane is uploaded
+    once per anchor (identity-keyed cache) and padded on the device."""
+    if hasattr(r, "dev_luma_me"):
+        return r.dev_luma_me(P, ph, pw)
+    from x265_tpu_torch.engine.planes import pad_dev
+    from x265_tpu_torch.utils import devcache
+
+    def build():
+        a = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(r).astype(np.int16))).to(device)
+        return pad_dev(a, (P, P + ph - height, P, P + pw - width))
+    return devcache.get_or(("me_ref", id(r), P, ph, pw, str(device)), r,
+                           build)
+
+
+# ---------------------------------------------------------------------------
+# Motion coherence pass (decision-stage merge/skip emulation): evaluate a
+# handful of frame-dominant motion tuples for EVERY block in one batched
+# pass and adopt them where the AMVP->merge/skip rate saving wins (x265
+# RD-costs the real merge candidates per CU, analysis.cpp:1914).
+# ---------------------------------------------------------------------------
+
+def _tuple_satd(cur, refs0_big, refs1_big, dirs, r0s, r1s, mv0s, mv1s,
+                S, P, K, bd):
+    """SATD of every SxS block under K fixed motion tuples.
+
+    cur [H,W]; refs{0,1}_big [nref, H+2P, W+2P] edge-padded by P (the
+    motion_fused upload layout); dirs (1/2/3), r0s/r1s list indices,
+    mv0s/mv1s quarter-pel pairs — host sequences of length K.
+    Returns [K, nby, nbx] int32.
+    """
+    H, W = cur.shape
+    nby, nbx = H // S, W // S
+    cur_blocks = _to_blocks(cur.to(torch.int32), nby, nbx, S)
+    f = LUMA_FILTERS                       # [4, 8] (tap 3 = base sample)
+    maxv = (1 << bd) - 1
+
+    def plane_pred(refs_big, r, mvx, mvy):
+        """Whole-frame 8-tap qpel prediction at one fixed MV."""
+        nr, Hb, Wb = refs_big.shape
+        r = min(max(int(r), 0), nr - 1)
+        ix = min(max(P + (mvx >> 2) - 3, 0), Wb - (W + 7))
+        iy = min(max(P + (mvy >> 2) - 3, 0), Hb - (H + 7))
+        win = refs_big[r, iy:iy + H + 7, ix:ix + W + 7].to(torch.int32)
+        fx = f[mvx & 3]
+        fy = f[mvy & 3]
+        hor = torch.zeros((H + 7, W), dtype=torch.int32, device=cur.device)
+        for t in range(8):
+            if int(fx[t]):
+                hor += int(fx[t]) * win[:, t:t + W]
+        out = torch.zeros((H, W), dtype=torch.int32, device=cur.device)
+        for t in range(8):
+            if int(fy[t]):
+                out += int(fy[t]) * hor[t:t + H, :]
+        return ((out + 2048) >> 12).clamp_(0, maxv)
+
+    outs = []
+    for k in range(K):
+        d = int(dirs[k])
+        if d == 3:
+            p0 = plane_pred(refs0_big, r0s[k], int(mv0s[k][0]),
+                            int(mv0s[k][1]))
+            p1 = plane_pred(refs1_big, r1s[k], int(mv1s[k][0]),
+                            int(mv1s[k][1]))
+            pred = (p0 + p1 + 1) >> 1
+        elif d == 1:
+            pred = plane_pred(refs0_big, r0s[k], int(mv0s[k][0]),
+                              int(mv0s[k][1]))
+        else:
+            pred = plane_pred(refs1_big, r1s[k], int(mv1s[k][0]),
+                              int(mv1s[k][1]))
+        blocks = _to_blocks(pred, nby, nbx, S)
+        outs.append(satd8_batched(cur_blocks, blocks).reshape(nby, nbx))
+    return torch.stack(outs)
+
+
+def tuple_satd(cur_y, ref0_ys, ref1_ys, cands, width, height, S=16,
+               R=57, bit_depth=8, device=None):
+    """Host wrapper for _tuple_satd: cands is a list of
+    (dir, r0, r1, (mv0x, mv0y), (mv1x, mv1y)) tuples (any count).
+    Reference uploads hit the motion_fused device cache.
+    Returns numpy satd [len(cands), nby, nbx]."""
+    device = resolve_device(device)
+    ph = -(-height // S) * S
+    pw = -(-width // S) * S
+    cur = _cur_upload(cur_y, bit_depth, ph, pw, device)
+    P = R + 6
+    refs0 = torch.stack([_me_ref_upload(r, P, ph, pw, height, width, device)
+                         for r in ref0_ys])
+    refs1 = (torch.stack([_me_ref_upload(r, P, ph, pw, height, width,
+                                         device) for r in ref1_ys])
+             if ref1_ys else refs0[:1])
+    cands = list(cands)
+    out = _tuple_satd(cur, refs0, refs1,
+                      [c[0] for c in cands], [c[1] for c in cands],
+                      [c[2] for c in cands], [c[3] for c in cands],
+                      [c[4] for c in cands], S, P, len(cands), bit_depth)
+    return out.cpu().numpy()
+
+
+def dominant_tuples(dir_blk, mv_blk, ref_blk, inter_blk, max_cands=4):
+    """Frame-dominant motion tuples from per-block decisions: the
+    most-frequent (dir, ref, mv0, mv1) combinations among inter blocks.
+    Returns a list of (dir, r0, r1, (mv0x,mv0y), (mv1x,mv1y)), most
+    frequent first (possibly empty)."""
+    sel = inter_blk.astype(bool)
+    if not sel.any():
+        return []
+    flat = np.concatenate(
+        [dir_blk[sel][:, None], ref_blk[sel][:, None],
+         mv_blk[sel].reshape(-1, 4)], axis=1)
+    uniq, cnt = np.unique(flat, axis=0, return_counts=True)
+    order = np.argsort(-cnt)
+    out = []
+    for i in order[:max_cands]:
+        d, r, x0, y0, x1, y1 = (int(v) for v in uniq[i])
+        out.append((d, r, 0, (x0, y0), (x1, y1)))
+    return out

@@ -1,0 +1,243 @@
+"""Exact-integer residual pipeline on the device — the decide/emit split.
+
+Device side of the finalizer split (reference analog: x265 separates
+Analysis::compressCTU pixel math from encodeCTU bin emission,
+frameencoder.cpp:1519 vs 1533; quant.cpp:397 transformNxN). Everything
+here reproduces the native finalizer's integer arithmetic BIT-EXACTLY —
+forward/inverse transform (spec 8.6 HM scaling), quant (171/85 deadzone),
+sign-bit-hiding, dequant — so the CPU consumes (levels, cbf, recon)
+tensors and emits CABAC bins only, with streams byte-identical to the
+all-CPU path.
+
+Kernels are batched over TUs of one static size; per-TU QP is a tensor.
+The transforms' matrix products run in float64: CUDA has no integer
+matmul, and every accumulator below is an integer under 2^31 (bounds in
+the docstrings), far inside float64's 2^53 exact range, so the products
+are exact whatever order the library sums in. Everything else is int32.
+
+Not ported yet: the integer RDOQ (_rdoq_x64) and the scaling-list
+int64 dequant path; do_rdoq=True and scaling=True raise.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from x265_tpu_torch.ops.ref.transform import DCT, DST4
+from x265_tpu_torch.hevc.tables import (
+    QUANT_SCALES, DEQUANT_SCALES, SCANS,
+)
+
+
+def _tmat(n: int, dst: bool) -> np.ndarray:
+    return (DST4 if (dst and n == 4) else DCT[n]).astype(np.int32)
+
+
+@lru_cache(maxsize=64)
+def _tmat_dev(n: int, dst: bool, device: str) -> torch.Tensor:
+    return torch.from_numpy(_tmat(n, dst)).to(device=device,
+                                              dtype=torch.float64)
+
+
+@lru_cache(maxsize=64)
+def _table_dev(name: str, device: str) -> torch.Tensor:
+    tab = {"quant": QUANT_SCALES, "dequant": DEQUANT_SCALES}[name]
+    return torch.tensor(np.asarray(tab, np.int32), device=device)
+
+
+def _rshift_round(x, s):
+    """(x + (1 << (s-1))) >> s, arithmetic shift (s static int >= 1)."""
+    return (x + (1 << (s - 1))) >> s
+
+
+def _imatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer matrix product of float64-held integers -> int32."""
+    return torch.matmul(a, b).to(torch.int32)
+
+
+def fwd_transform_b(resi: torch.Tensor, n: int, dst: bool,
+                    bd: int) -> torch.Tensor:
+    """Batched forward transform [N,n,n] int32 -> [N,n,n] int32.
+
+    Bounds: stage-1 acc <= 32*90*2^(bd+1) < 2^31; stage-2 acc <=
+    32*90*2^16 < 2^31.
+    """
+    t = _tmat_dev(n, dst, str(resi.device))
+    log2 = n.bit_length() - 1
+    s1 = log2 + bd - 9
+    s2 = log2 + 6
+    r = resi.to(torch.float64)
+    # tmp[k][y] = sum_x t[k,x] * resi[y,x]
+    tmp = _imatmul(t, r.transpose(1, 2))                    # [N,k,y]
+    tmp = _rshift_round(tmp, s1)
+    # coeff[ky][kx] = sum_y t[ky,y] * tmp[kx,y]
+    out = _imatmul(t, tmp.to(torch.float64).transpose(1, 2))  # [N,a,k]
+    return _rshift_round(out, s2)
+
+
+def inv_transform_b(coeff: torch.Tensor, n: int, dst: bool,
+                    bd: int) -> torch.Tensor:
+    """Batched normative inverse transform, 16-bit inter-stage clamp.
+    Bounds: acc <= 32*90*2^15 < 2^30."""
+    t = _tmat_dev(n, dst, str(coeff.device))
+    s2 = 20 - bd
+    c = coeff.to(torch.float64)
+    # tmp[y][kx] = sum_ky t[ky,y] * coeff[ky,kx]  >> 7, clip16
+    tmp = _imatmul(t.t(), c)                                # [N,a,x]
+    tmp = _rshift_round(tmp, 7).clamp(-32768, 32767)
+    # resi[y][x] = sum_kx t[kx,x] * tmp[y,kx] >> s2, clip16
+    out = _imatmul(tmp.to(torch.float64), t)                # [N,y,x]
+    return _rshift_round(out, s2).clamp(-32768, 32767)
+
+
+def quantize_b(coeff: torch.Tensor, qp: torch.Tensor, n: int,
+               is_intra: bool, bd: int,
+               scaling: bool = False) -> torch.Tensor:
+    """Batched deadzone quant; qp [N] per-TU. Bounds: |c|*scale < 2^30,
+    offset <= 171<<20 => sum < 2^31 — int32 exact."""
+    if scaling:
+        raise NotImplementedError("scaling lists are not ported yet")
+    log2 = n.bit_length() - 1
+    qp = qp.to(torch.int32)
+    per = torch.div(qp, 6, rounding_mode="floor")
+    rem = qp - per * 6
+    tr_shift = 15 - bd - log2
+    qbits = (14 + per + tr_shift)[:, None, None]
+    scale = _table_dev("quant", str(coeff.device))[rem.long()][:, None, None]
+    offset = torch.full_like(qbits, 171 if is_intra else 85) << (qbits - 9)
+    c = coeff.to(torch.int32)
+    a = c.abs()
+    v = ((a * scale + offset) >> qbits).clamp(max=32767)
+    return torch.where(c < 0, -v, v)
+
+
+def _deq_core(lvl, per, rem, bs, rounded: bool, m=None):
+    """Shared dequant core without int64:
+    (t*2^per + rnd) >> bs == t << (per-bs)              (per >= bs)
+                          == (t + rnd') >> (bs-per)     (per < bs)
+    with t = lvl*scale*16 (|t| <= 32767*1152 < 2^26). rnd' = 2^(bs-per-1)
+    when `rounded` (normative dequant), else 0."""
+    if m is not None:
+        raise NotImplementedError("scaling lists are not ported yet")
+    scale = _table_dev("dequant", str(lvl.device))[rem.long()] * 16
+    while scale.dim() < lvl.dim():
+        scale = scale[..., None]
+        per = per[..., None]
+    t = lvl.to(torch.int32) * scale
+    sh = per - bs
+    up = t << sh.clamp(min=0)
+    dn_s = (-sh).clamp(min=0)
+    if rounded:
+        one = torch.ones_like(dn_s)
+        rnd = torch.where(dn_s > 0, one << (dn_s - 1).clamp(min=0),
+                          torch.zeros_like(dn_s))
+    else:
+        rnd = 0
+    dn = (t + rnd) >> dn_s
+    return torch.where(sh >= 0, up, dn)
+
+
+def dequantize_b(lvl: torch.Tensor, qp: torch.Tensor, n: int,
+                 bd: int, scaling: bool = False,
+                 is_intra: bool = False) -> torch.Tensor:
+    """Batched normative dequant + clamp16 (int32-only)."""
+    if scaling:
+        raise NotImplementedError("scaling lists are not ported yet")
+    log2 = n.bit_length() - 1
+    qp = qp.to(torch.int32)
+    per = torch.div(qp, 6, rounding_mode="floor")
+    d = _deq_core(lvl, per, qp - per * 6, bd + log2 - 5, rounded=True)
+    return d.clamp(-32768, 32767).to(torch.int32)
+
+
+@lru_cache(maxsize=16)
+def _scans_dev(n: int, device: str) -> torch.Tensor:
+    log2 = n.bit_length() - 1
+    scans = [SCANS[(log2, si)] if (log2, si) in SCANS else SCANS[(log2, 0)]
+             for si in (0, 1, 2)]
+    return torch.from_numpy(np.stack(
+        [np.asarray(s, np.int64).reshape(-1) for s in scans])).to(device)
+
+
+def _first_true(mask: torch.Tensor, dim: int) -> torch.Tensor:
+    """Index of the first True along dim (0 when there is none) — the
+    argmax-of-bool idiom with the first-index rule spelled out."""
+    n = mask.shape[dim]
+    shape = [1] * mask.dim()
+    shape[dim] = n
+    ar = torch.arange(n, device=mask.device).reshape(shape)
+    first = torch.where(mask, ar, n).amin(dim=dim)
+    return torch.where(first == n, torch.zeros_like(first), first)
+
+
+def sbh_b(lvl: torch.Tensor, scan_sel: torch.Tensor, n: int) -> torch.Tensor:
+    """Batched sign-bit-hiding pre-adjust (sbh_adjust / oracle
+    sign_bit_hiding_adjust): per 16-coeff scan group with lastNZ-firstNZ>3,
+    force parity(sum|l|) == sign(firstNZ) by nudging the first NZ level.
+
+    lvl [N,n,n]; scan_sel [N] in {0,1,2} picks the scan order (diag/hor/
+    vert — mode-dependent for small intra TUs).
+    """
+    scans = _scans_dev(n, str(lvl.device))                  # [3, n*n]
+    N = lvl.shape[0]
+    flat = lvl.reshape(N, n * n)
+    scan = scans[scan_sel.long()]                           # [N, n*n]
+    s = torch.gather(flat, 1, scan)                         # scanned order
+    ncg = (n * n) // 16
+    g = s.reshape(N, ncg, 16)
+    nz = g != 0
+    any_nz = nz.any(dim=2)
+    first = _first_true(nz, 2)                              # first NZ idx
+    last = 15 - _first_true(nz.flip(2), 2)
+    asum = g.abs().sum(dim=2)
+    firstval = torch.gather(g, 2, first[:, :, None])[:, :, 0]
+    want = (firstval < 0).to(asum.dtype)
+    need = any_nz & (last - first > 3) & ((asum & 1) != want)
+    # adjustment: +/-1 toward even parity; |1| goes to 2 (never to 0)
+    sg = torch.sign(firstval)
+    adj = torch.where(firstval.abs() == 1, firstval + sg, firstval - sg)
+    newval = torch.where(need, adj, firstval)
+    ar16 = torch.arange(16, device=lvl.device)[None, None, :]
+    g = torch.where((ar16 == first[:, :, None]) & need[:, :, None],
+                    newval[:, :, None], g)
+    s = g.reshape(N, n * n)
+    # inverse scatter: flat[scan[i]] = s[i]
+    out = torch.zeros_like(flat).scatter_(1, scan, s)
+    return out.reshape(N, n, n)
+
+
+def _tq_chain(resi: torch.Tensor, qp: torch.Tensor, scan_sel: torch.Tensor,
+              n: int, dst: bool, is_intra: bool, bd: int, sdh: bool,
+              do_rdoq: bool, lossless: bool, scaling: bool = False,
+              consts=None, psy_fx: int = 0):
+    if lossless:
+        cbf = (resi != 0).any(dim=2).any(dim=1)
+        return resi, resi, cbf
+    if do_rdoq:
+        raise NotImplementedError("RDOQ is not ported yet")
+    cf = fwd_transform_b(resi, n, dst, bd)
+    lvl = quantize_b(cf, qp, n, is_intra, bd, scaling)
+    if sdh:
+        nzb = (lvl != 0).any(dim=2).any(dim=1)
+        lvl = torch.where(nzb[:, None, None], sbh_b(lvl, scan_sel, n), lvl)
+    cbf = (lvl != 0).any(dim=2).any(dim=1)
+    deq = dequantize_b(lvl, qp, n, bd, scaling, is_intra)
+    rr = inv_transform_b(deq, n, dst, bd)
+    rres = torch.where(cbf[:, None, None], rr, torch.zeros_like(rr))
+    return lvl, rres, cbf
+
+
+def tq_chain(resi, qp, scan_sel, n: int, dst: bool, is_intra: bool,
+             bd: int, sdh: bool, do_rdoq: bool, lossless: bool,
+             scaling: bool = False, consts=None, psy_fx: int = 0):
+    """The full coeffs_from_pred / tb_process transform chain for a batch
+    of same-size TUs: residual -> (levels, recon-residual, cbf).
+
+    resi [N,n,n] int32; qp [N] (already plane-adjusted Qp'); scan_sel [N]
+    scan index for SBH. Returns (levels int32 [N,n,n], rres int32 [N,n,n],
+    cbf bool [N]).
+    """
+    return _tq_chain(resi, qp, scan_sel, n, dst, is_intra, bd, sdh,
+                     do_rdoq, lossless, scaling, consts, psy_fx)
