@@ -1,6 +1,7 @@
 """utils/convert.py: the constant tensors and frame state the port
 computes on are the JAX package's, value for value."""
 import numpy as np
+import pytest
 import torch
 
 from x265_tpu.hevc import tables as jtab
@@ -73,3 +74,36 @@ def test_native_tables_header_is_the_reference_one():
             return [ln for ln in f if not ln.startswith("//")]
     assert (body("x265_tpu_torch/native/tables_gen.h")
             == body("x265_tpu/native/tables_gen.h"))
+
+
+def test_loopfilter_state_conversions_copy_and_default():
+    """SaoParams, DeblockState with its bS inputs, a qp map and explicit
+    weights, from numpy: copies, with the all-intra defaults."""
+    from x265_tpu_torch.hevc.deblock import NOPOC
+    rng = np.random.default_rng(0)
+    maps = {k: rng.integers(0, 3, (2, 3, 4) if k.startswith("off")
+                            else (2, 3))
+            for k in convert._SAO_FIELDS}
+    sp = convert.sao_params_from_numpy(**maps)
+    maps["type_y"][:] = 9
+    assert sp.type_y.max() < 3 and sp.off_cr.dtype == np.int32
+    back = convert.sao_params_to_numpy(sp)
+    assert set(back) == set(convert._SAO_FIELDS)
+    with pytest.raises(KeyError):
+        convert.sao_params_from_numpy(type_y=maps["type_y"])
+    ev = rng.random((6, 8)) < 0.5
+    st, intra, mv4, refpoc4 = convert.deblock_state_from_numpy(
+        24, 32, ev, ev.copy(), ev.copy())
+    assert st.cbf4.shape == (6, 8) and intra.all() and not mv4.any()
+    assert (refpoc4 == NOPOC).all() and not st.bypass4.any()
+    ev[:] = False
+    assert st.edge_v.any()                         # a copy
+    q = convert.qp_map_from_numpy(np.array([[30.0, 31.0]]))
+    assert q.dtype == np.int32
+    assert convert.weights_from_numpy() is None
+    wp, ld, cd = convert.weights_from_numpy((60, -4), ((64, 2), (64, -2)))
+    assert ld == cd == 6 and wp.shape == (4, 3, 3)
+    assert wp[0].tolist() == [[1, 60, -4], [1, 64, 2], [1, 64, -2]]
+    assert not wp[1:].any()
+    wp, ld, cd = convert.weights_from_numpy((60, -4), None)
+    assert (ld, cd) == (6, 0) and not wp[0, 1:].any()

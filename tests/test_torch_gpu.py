@@ -47,5 +47,15 @@ def test_cuda_kernels_equal_plain_on_the_card():
     a = T(rng.integers(0, 256, (N, 16, 16)).astype(np.int32)).to(dev)
     b = T(rng.integers(0, 256, (N, 16, 16)).astype(np.int32)).to(dev)
     assert torch.equal(cuda_kernels.satd(a, b), cuda_kernels.satd_plain(a, b))
+    S, R = 8, 5
+    cur = T(rng.integers(0, 256, (40, 56)).astype(np.int16)).to(dev)
+    ref = T(rng.integers(0, 256, (50, 66)).astype(np.int16)).to(dev)
+    mvc = T(rng.integers(0, 9, 121).astype(np.float32)).to(dev)
+    assert torch.equal(cuda_kernels.sad_sweep(cur, ref, S, R),
+                       cuda_kernels.sad_sweep_plain(cur, ref, S, R))
+    for got, want in zip(
+            cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R),
+            cuda_kernels.sad_sweep_argmin_plain(cur, ref, mvc, S, R)):
+        assert torch.equal(got, want)
     for k in before:
         assert cuda_mc.launches[k] == before[k] + 1

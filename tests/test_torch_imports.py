@@ -1,8 +1,8 @@
 """The port stands alone: no module of x265_tpu_torch, nor chip_smoke.py,
 imports jax or the JAX package — checked in the sources and, in a fresh
 interpreter, in sys.modules after importing every module. Also: options
-outside the slice raise, and no CUDA device without an explicit CPU
-request raises."""
+outside the ported slices raise, the ported ones are accepted, and no
+CUDA device without an explicit CPU request raises."""
 import os
 import re
 import subprocess
@@ -70,9 +70,12 @@ def _params(**kw):
 
 @pytest.mark.parametrize("name,kw", [
     ("bframes", dict(bframes=2)), ("CQP", dict(rc_mode=0)),
-    ("scenecut", dict(scenecut=40)), ("aq_mode", dict(aq_mode=1)),
-    ("cu_tree", dict(cu_tree=True)), ("deblock", dict(deblock=True)),
-    ("sao", dict(sao=True)), ("weightp", dict(weightp=True)),
+    ("scenecut", dict(scenecut=40)),
+    ("hist_scenecut", dict(hist_scenecut=True)),
+    ("cu_tree", dict(cu_tree=True, scenecut=40)),
+    ("frame_dup", dict(frame_dup=True)),
+    ("intra_refresh", dict(intra_refresh=True)),
+    ("scaling_lists", dict(scaling_lists=True)),
     ("rd_level", dict(rd_level=3)), ("rdoq_level", dict(rdoq_level=1)),
     ("tu_inter_depth", dict(tu_inter_depth=2)), ("tskip", dict(tskip=True)),
     ("lossless", dict(lossless=True)), ("slices", dict(slices=2)),
@@ -83,6 +86,23 @@ def test_unsupported_option_raises_naming_it(name, kw):
     with pytest.raises(NotImplementedError) as ei:
         Encoder(_params(**kw), device="cpu")
     assert name in str(ei.value)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(aq_mode=1), dict(cu_tree=True), dict(deblock=True), dict(sao=True),
+    dict(weightp=True),
+    dict(deblock=True, sao=True, aq_mode=2, weightp=True, cu_tree=True)],
+    ids=["aq_mode", "cu_tree", "deblock", "sao", "weightp", "all"])
+def test_filter_options_are_accepted(kw):
+    """The loop filters, AQ and weightp are ported; cu_tree is taken while
+    it is inert (CQP, no scenecut: no lookahead runs)."""
+    from x265_tpu_torch.api.encoder import Encoder
+    enc = Encoder(_params(**kw), device="cpu")
+    assert enc.pps.deblocking_filter_disabled == (not kw.get("deblock"))
+    assert enc.pps.weighted_pred == bool(kw.get("weightp"))
+    assert enc.pps.cu_qp_delta_enabled == bool(
+        kw.get("aq_mode") or kw.get("cu_tree"))
+    assert enc.sps.sao_enabled == bool(kw.get("sao"))
 
 
 def test_bit_depth_raises():

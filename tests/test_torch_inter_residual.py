@@ -10,7 +10,8 @@ from x265_tpu.engine.ctu_writer import FrameDecisions as JDec
 from x265_tpu.models import inter_residual as jir
 from x265_tpu_torch.models import inter_residual as tir
 from x265_tpu_torch.utils.convert import (
-    decisions_from_numpy, reference_from_numpy)
+    decisions_from_numpy, qp_map_from_numpy, reference_from_numpy,
+    weights_from_numpy)
 from torch_port_util import make_clip, slice_params
 
 
@@ -68,6 +69,44 @@ def test_build_inter_pre_exact(w, h, ctb, sdh, handles):
         w_ = np.asarray(want[k])
         assert got[k].dtype == w_.dtype, k
         assert np.array_equal(got[k], w_), k
+
+
+@pytest.mark.parametrize("wl,wc", [
+    ((58, 7), ((64, -3), (64, 4))), ((70, -12), None), (None, ((64, 5),
+                                                            (64, -6)))])
+def test_build_inter_pre_weighted_qp_map_three_refs(wl, wc):
+    """Explicit L0 weights on the nearest of three references, and a
+    per-CTU QP map: the weighted uni-prediction branch and the per-CU QP
+    reaching the transform chain and the chroma QP table."""
+    w, h, ctb = 192, 128, 6
+    fr = make_clip(w, h, 4, seed=7)
+    src, refs = fr[3], [fr[2], fr[1], fr[0]]
+    maps = _decisions(w, h, ctb, seed=11)
+    rng = np.random.default_rng(5)
+    maps["ref8"] = np.repeat(np.repeat(
+        rng.integers(0, 3, (h >> 6, w >> 6)), 8, 0), 8, 1).astype(np.int32)
+    maps["qp_map"] = qp_map_from_numpy(rng.integers(24, 37, (h >> 6, w >> 6)))
+    pj = slice_params("x265_tpu", w, h, ctu=64, ref=3)
+    pt = slice_params("x265_tpu_torch", w, h, ctu=64, ref=3)
+    pad = 80
+    ref_pads = [tuple(np.pad(np.asarray(pl).astype(np.int16),
+                             pad >> (0 if i == 0 else 1), mode="edge")
+                      for i, pl in enumerate(r)) for r in refs]
+    wp = weights_from_numpy(wl, wc)
+    want = jir.build_inter_pre(
+        src, JDec(**{k: np.array(v) for k, v in maps.items()}),
+        (ref_pads, []), 30, pj, wp, True, 0)
+    refs_t = [reference_from_numpy(r, device="cpu") for r in refs]
+    got = tir.build_inter_pre(src, decisions_from_numpy(**maps),
+                              (refs_t, []), 30, pt, wp, True, 0, device="cpu")
+    plain = tir.build_inter_pre(src, decisions_from_numpy(**maps),
+                                (refs_t, []), 30, pt, None, True, 0,
+                                device="cpu")
+    for k in want:
+        assert np.array_equal(got[k], np.asarray(want[k])), k
+    # the weights changed the prediction
+    key = "rec_y" if wl else "rec_cb"
+    assert not np.array_equal(plain[key], got[key])
 
 
 def test_inter_class_body_exact():

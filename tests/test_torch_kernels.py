@@ -42,7 +42,8 @@ def test_satd_matches_pallas_interpret_and_jnp(S, N):
     assert cuda_mc.launches["satd8x8"] == 0        # no kernel on the CPU
 
 
-@pytest.mark.parametrize("n,taps,bd", [(16, 8, 8), (8, 4, 8), (32, 8, 8)])
+@pytest.mark.parametrize("n,taps,bd", [(16, 8, 8), (8, 4, 8), (32, 8, 8),
+                                       (64, 8, 8), (32, 4, 8)])
 def test_mc_gather_matches_jnp_twin(n, taps, bd):
     rng = np.random.default_rng(0)
     H, W, pad = 256, 448, 80
@@ -145,7 +146,8 @@ def test_wrappers_reject_bad_arguments():
 
 @pytest.mark.parametrize("mod,name", [
     (cuda_mc, "tile_gather"), (cuda_mc, "tile_gather_planes"),
-    (cuda_mc, "mc_gather_interp"), (cuda_kernels, "satd")])
+    (cuda_mc, "mc_gather_interp"), (cuda_kernels, "satd"),
+    (cuda_kernels, "sad_sweep"), (cuda_kernels, "sad_sweep_argmin")])
 def test_wrapper_reaches_plain_version_only_for_cpu_tensors(mod, name):
     """The device of the tensor alone decides: no switch, no try/except."""
     import inspect

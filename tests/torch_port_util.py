@@ -1,5 +1,6 @@
 """Shared helpers of the tests/test_torch_*.py files: seeded clips and
 the slice's configuration, built the same way for both packages."""
+import hashlib
 import importlib
 
 import numpy as np
@@ -94,3 +95,71 @@ def slice_params(pkg, w, h, **extra):
         P.param_parse(p, k, str(v))
     p.width, p.height = w, h
     return p
+
+
+# ---- golden cases (x265_tpu_torch/utils/testclip.GOLDEN_CASES) ----------
+
+def frame_by_frame(enc, frames):
+    """(stream, per-frame qp maps) through headers/encode_frame/flush."""
+    stream = enc.headers()
+    qp_maps = []
+    for f in frames:
+        stream += enc.encode_frame(*f)
+        q = enc._last_analysis.qp_map
+        qp_maps.append(None if q is None else q.astype(int).tolist())
+    return stream + enc.flush(), qp_maps
+
+
+def golden_pair(name):
+    """(port encoder, port stream, recons, JAX stream, frames) of a golden
+    case; fails when the committed entry is not the JAX package's."""
+    from x265_tpu.api import params as JP
+    from x265_tpu.api.encoder import Encoder as JEncoder
+    from x265_tpu_torch.api import params as TP
+    from x265_tpu_torch.api.encoder import Encoder as TEncoder
+    from x265_tpu_torch.utils import testclip
+    frames = testclip.golden_clip(name)
+    enc = TEncoder(testclip.golden_params(name, TP), device="cpu")
+    recons = []
+    enc.recon_sink = lambda idx, planes: recons.append(planes)
+    stream, qp_maps = frame_by_frame(enc, frames)
+    ref, ref_qp_maps = frame_by_frame(
+        JEncoder(testclip.golden_params(name, JP)), frames)
+    gold = testclip.golden_digests()[name]
+    assert gold == {"sha256": hashlib.sha256(ref).hexdigest(),
+                    "bytes": len(ref), "qp_maps": ref_qp_maps}, \
+        f"golden entry of {name} is stale"
+    assert qp_maps == ref_qp_maps
+    return enc, stream, recons, ref, frames
+
+
+def assert_decodes_to_recon(stream, recons, n):
+    from x265_tpu_torch.decoder.decoder import HEVCDecoder
+    pics = HEVCDecoder().decode(stream)
+    assert len(pics) == n == len(recons)
+    for pic, rec in zip(pics, recons):
+        for a, b in zip((pic.y, pic.cb, pic.cr), rec):
+            assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def assert_filtered_golden_case(name):
+    """fast + zerolatency on a clip with a brightness ramp: deblock, SAO,
+    weightp, three references, 64x64 CTUs; with and without AQ."""
+    enc, stream, recons, ref, frames = golden_pair(name)
+    assert stream == ref
+    p = enc.param
+    assert (p.deblock and p.sao and p.weightp and p.ref == 3
+            and p.ctu_size == 64 and p.sub_me == 2 and p.rd_level == 2)
+    assert "".join(s["type"] for s in enc.frame_stats) == "IPPPP"
+    # every new branch was taken
+    assert enc._last_weights[0] is not None       # the ramp was found
+    assert enc._last_weights[1] is not None       # chroma offsets too
+    sp = enc._last_sao
+    assert (sp.type_y != 0).any() or (sp.type_c != 0).any()
+    assert len(enc.anchors) == 3
+    qmap = enc._last_analysis.qp_map
+    if name == "fast_zerolatency":
+        assert (qmap != enc.frame_stats[-1]["qp"]).any()
+    else:
+        assert (qmap == enc.frame_stats[-1]["qp"]).all()
+    assert_decodes_to_recon(stream, recons, len(frames))

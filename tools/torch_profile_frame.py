@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Where one 1080p P frame of the PyTorch/CUDA port spends its time.
 
-    python3 tools/torch_profile_frame.py [--frames 6] [--out trace.json]
+    python3 tools/torch_profile_frame.py [--config ultrafast|filtered]
+                                         [--frames 6] [--out trace.json]
 
-Needs a CUDA device. Encodes a seeded 1920x1080 clip in the low-latency
-I/P configuration (the clip and parameters of chip_smoke.py), lets the
-first frames warm everything up, then traces the LAST P frame with
+Needs a CUDA device. Encodes a seeded 1920x1080 clip in one of the two
+configurations chip_smoke.py drives (ultrafast + zerolatency, or the
+filtered fast + zerolatency with its brightness ramp), lets the first
+frames warm everything up, then traces the LAST P frame with
 torch.profiler and prints one JSON object: the frame's wall time, the
 device's busy time and idle share inside it, the per-stage seconds, the
-device time of the four hand-written kernels, and the kernels that took
-most of the device's time. With --out it also writes the Chrome trace.
+device time of the hand-written kernels, and the kernels that took most
+of the device's time. With --out it also writes the Chrome trace.
 """
 import argparse
 import json
@@ -25,18 +27,26 @@ import chip_smoke  # noqa: E402  (exits when there is no CUDA device)
 from x265_tpu_torch.api.encoder import Encoder  # noqa: E402
 from x265_tpu_torch.utils import profiling  # noqa: E402
 
-OURS = ("mc_gather_kernel", "tile_gather_kernel", "satd8_kernel")
+OURS = ("mc_gather_kernel", "tile_gather_kernel", "satd8_kernel",
+        "sad_sweep_kernel")
 
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config", choices=("ultrafast", "filtered"),
+                    default="ultrafast")
     ap.add_argument("--frames", type=int, default=6)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     card = chip_smoke.smi()
-    frames = chip_smoke.make_clip(chip_smoke.W, chip_smoke.H, args.frames,
-                                  seed=11)
-    enc = Encoder(chip_smoke.slice_params(chip_smoke.W, chip_smoke.H))
+    W, H = chip_smoke.W, chip_smoke.H
+    if args.config == "filtered":
+        frames = chip_smoke.make_ramp_clip(W, H, args.frames, seed=11,
+                                           step=0.05)
+        enc = Encoder(chip_smoke.filtered_params(W, H))
+    else:
+        frames = chip_smoke.make_clip(W, H, args.frames, seed=11)
+        enc = Encoder(chip_smoke.slice_params(W, H))
     enc.headers()
     for f in frames[:-1]:
         enc.encode_frame(*f)
@@ -69,7 +79,8 @@ def main():
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     out = {
-        "card": card, "frame_bytes": len(au), "frame_wall_ms": wall * 1e3,
+        "card": card, "config": args.config, "frame_bytes": len(au),
+        "frame_wall_ms": wall * 1e3,
         "stage_ms": {k: v["seconds"] * 1e3
                      for k, v in profiling.report().items()},
     }

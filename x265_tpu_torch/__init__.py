@@ -19,9 +19,10 @@ Everything is eager PyTorch on an explicit device. Entry points take
 ``device=None``, which means the CUDA device; without one they raise
 unless the caller passes ``device="cpu"``.
 
-Covered so far: the low-latency I/P encode (``ultrafast`` +
-``zerolatency``, CQP, no B frames, no loop filters). ``Encoder`` raises
-``NotImplementedError`` for every option outside that slice.
+Covered so far: the low-latency I/P encode (``ultrafast`` ... ``fast``
+with ``zerolatency``, CQP, no B frames, no lookahead), with deblock, SAO,
+adaptive quantization and weighted prediction. ``Encoder`` raises
+``NotImplementedError`` for every option outside those slices.
 """
 
 __version__ = "0.1.0"

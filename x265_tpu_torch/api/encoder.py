@@ -2,10 +2,14 @@
 reference source/encoder/api.cpp:76,410 and encoder.cpp:1574).
 
 Scope of the port so far: the low-latency I/P encode — IDR/CRA + P
-pictures, CQP, no B frames, no lookahead, no loop filters, single slice
-per picture, Annex-B output. Per picture: intra analysis and motion
-search on the device, merge adoption and CU promotion on the host,
-inter residual/recon on the device, CABAC in the native writer.
+pictures, CQP, no B frames, no lookahead, single slice per picture,
+Annex-B output — with the in-loop filters (deblock, SAO), adaptive
+quantization and weighted prediction of the presets up to `fast`.
+Per picture: intra analysis and motion search on the device, merge
+adoption and CU promotion on the host, inter residual/recon on the
+device, CABAC in the native writer, then deblock + SAO statistics and
+the SAO apply on the device; the filtered planes stay there as the next
+pictures' reference.
 Everything else raises NotImplementedError at construction.
 """
 from __future__ import annotations
@@ -141,8 +145,13 @@ def _check_supported(p) -> None:
         bad.append("rate control other than CQP (crf/bitrate)")
     if p.scenecut > 0:
         bad.append("scenecut > 0 (needs the lookahead)")
-    for name in ("aq_mode", "cu_tree", "deblock", "sao", "weightp",
-                 "rdoq_level", "tskip", "lossless", "wpp", "hist_scenecut",
+    # cu_tree only adds offsets from lookahead records: it is inert, as
+    # in the JAX package, exactly while no lookahead runs
+    need_la = p.rc_mode != RC_CQP or (p.scenecut > 0 and p.keyint != 1
+                                      and not p.lossless)
+    if p.cu_tree and need_la:
+        bad.append("cu_tree with a lookahead")
+    for name in ("rdoq_level", "tskip", "lossless", "wpp", "hist_scenecut",
                  "frame_dup", "intra_refresh", "scaling_lists", "nr_intra",
                  "nr_inter", "qpfile", "analysis_save", "analysis_load",
                  "zones", "pass_num"):
@@ -252,17 +261,19 @@ class Encoder:
             self.sps.vui_present = True
         self._poc_mask = (1 << self.sps.log2_max_poc_lsb) - 1
         self.pps = PPS(
-            weighted_pred=False,
+            weighted_pred=p.weightp,
             sign_data_hiding=p.sign_hide,
             init_qp=26,
             cb_qp_offset=p.cb_qp_offset,
             cr_qp_offset=p.cr_qp_offset,
             transquant_bypass_enabled=False,
             transform_skip_enabled=False,
-            cu_qp_delta_enabled=False,
+            cu_qp_delta_enabled=bool(p.aq_mode > 0 or p.cu_tree),
             diff_cu_qp_delta_depth=0,          # QG == CTB
-            deblocking_filter_control_present=True,
-            deblocking_filter_disabled=True,
+            deblocking_filter_control_present=(
+                not p.deblock or p.deblock_beta_offset != 0
+                or p.deblock_tc_offset != 0),
+            deblocking_filter_disabled=not p.deblock,
             beta_offset_div2=p.deblock_beta_offset,
             tc_offset_div2=p.deblock_tc_offset,
             loop_filter_across_slices=True,
@@ -277,6 +288,8 @@ class Encoder:
         self.recon_sink = None
         # the decisions the most recent picture actually used
         self._last_analysis = None
+        self._last_sao = None        # SaoParams of the most recent picture
+        self._last_weights = None    # (luma, chroma) weights of the last P
         self._scenecut_frames = set()
         self._pic_struct = {}
         self._emitted = set()
@@ -303,6 +316,9 @@ class Encoder:
         self.anchors = []            # retained anchors, nearest first
         self.pending = []            # queued (poc, frame) awaiting emission
         self._zero_ref = None        # (pad, all-zero padded planes)
+        # differential-test hook: False routes the deblock through the
+        # numpy reference (hevc/deblock.py) instead of the device
+        self.use_tpu_loopfilter = True
         from x265_tpu_torch.engine.ratecontrol import RateControl
         self.rc = RateControl(p)
         self.frame_stats = []        # per-frame records in encode order
@@ -742,7 +758,26 @@ class Encoder:
         )
         refs_l0 = [a[1] for a in anchors]
         pocs_l0 = tuple(a[0] for a in anchors)
-        decisions = self._p_decisions(y, refs_l0, qp, frame=(y, cb, cr))
+        me_refs = refs_l0
+        if self.pps.weighted_pred:
+            # fade analysis vs the nearest ref (weightAnalyse analog,
+            # weightPrediction.cpp:480); weights ride the slice header
+            from x265_tpu_torch.engine.weightp import (
+                DENOM, analyze_slice_weights, weight_luma_me_handle)
+            wl, wc = analyze_slice_weights((y, cb, cr), refs_l0[0],
+                                           p.bit_depth)
+            self._last_weights = (wl, wc)
+            n0 = len(anchors)
+            if wl is not None:
+                sh.luma_log2_weight_denom = DENOM
+                sh.luma_weights_l0 = [wl] + [None] * (n0 - 1)
+                me_refs = ([weight_luma_me_handle(refs_l0[0], wl[0],
+                                                  wl[1], p.bit_depth)]
+                           + list(refs_l0[1:]))
+            if wc is not None:
+                sh.chroma_log2_weight_denom = DENOM
+                sh.chroma_weights_l0 = [wc] + [None] * (n0 - 1)
+        decisions = self._p_decisions(y, me_refs, qp, frame=(y, cb, cr))
         slice_data, recon = self._inter_slice_data(
             (y, cb, cr), sh, decisions, (refs_l0, []),
             (pocs_l0, ()), poc, SLICE_P)
@@ -797,10 +832,30 @@ class Encoder:
 
     def _inter_slice_data(self, frame, sh, decisions, refs, ref_poc, poc,
                           slice_type):
+        """Synchronous wrapper around _inter_slice_gen (drives the
+        generator to completion)."""
+        g = self._inter_slice_gen(frame, sh, decisions, refs, ref_poc,
+                                  poc, slice_type)
+        while True:
+            try:
+                next(g)
+            except StopIteration as e:
+                return e.value
+
+    def _inter_slice_gen(self, frame, sh, decisions, refs, ref_poc, poc,
+                         slice_type):
         """Encode slice data (I/P) with the native C++ finalizer; for P
         slices the inter CUs' MC/transform/quant/recon come precomputed
         from the device (models/inter_residual.build_inter_pre) and the
-        writer only emits their bins. Returns (bytes, recon FramePlanes)."""
+        writer only emits their bins. Two-phase when SAO is on (x265
+        FrameFilter pipeline analog): phase 1 reconstructs, then deblock
+        + SAO analysis on the deblocked picture, then phase 2 re-emits
+        the syntax with the per-CTU sao() parameters.
+
+        GENERATOR returning (bytes, fully loop-filtered recon
+        FramePlanes): it yields once while the deblock(+SAO statistics)
+        work is in flight on the device, so a caller may run another
+        picture's host work before resuming."""
         from x265_tpu_torch import native
         from x265_tpu_torch.utils.profiling import scope
         p = self.param
@@ -815,7 +870,40 @@ class Encoder:
             if ref_poc[0]:
                 col = self._colmv.get(ref_poc[0][0])
         sh.temporal_mvp_enabled = col is not None
+        if self.pps.cu_qp_delta_enabled and decisions.qp_map is None:
+            if p.aq_mode > 0:
+                # float offsets, chroma-inclusive energies (acEnergyCu);
+                # rounded ONCE (x265 keeps qpAqOffset as double until
+                # calcQpForCu)
+                from x265_tpu_torch.engine.aq import aq_qp_offsets
+                off = aq_qp_offsets(y, p.ctb_log2, p.aq_mode,
+                                    p.aq_strength, cb=cb, cr=cr,
+                                    bit_depth=p.bit_depth,
+                                    hdr10_opt=bool(p.hdr10_opt),
+                                    device=self.device)
+            else:
+                cy = -(-p.height // p.ctu_size)
+                cx = -(-p.width // p.ctu_size)
+                off = np.zeros((cy, cx), dtype=np.float64)
+            # one rounding at the end; +-12 keeps cu_qp_delta well inside
+            # the spec's +-(26+QpBdOffsetY/2) coding range (7.4.9.10)
+            off = np.clip(np.rint(off), -12, 12)
+            decisions.qp_map = np.clip(sh.qp + off, 0, 51).astype(np.int32)
         self._last_analysis = decisions
+        sao_on = bool(p.sao)
+        wp_native = None
+        if (sh.luma_weights_l0 is not None
+                or sh.chroma_weights_l0 is not None):
+            wp = np.zeros((4, 3, 3), np.int32)
+            for r, e in enumerate((sh.luma_weights_l0 or [])[:4]):
+                if e is not None:
+                    wp[r, 0] = (1, e[0], e[1])
+            for r, e in enumerate((sh.chroma_weights_l0 or [])[:4]):
+                if e is not None:
+                    wp[r, 1] = (1, e[0][0], e[0][1])
+                    wp[r, 2] = (1, e[1][0], e[1][1])
+            wp_native = (wp, sh.luma_log2_weight_denom,
+                         sh.chroma_log2_weight_denom)
         pad = 80
         refs_padded = tuple(
             [self._pad_ref(planes, pad) for planes in lst]
@@ -826,10 +914,12 @@ class Encoder:
             with scope("tpu_residual"):
                 pre = build_inter_pre(
                     (np.asarray(y), np.asarray(cb), np.asarray(cr)),
-                    decisions, refs_padded, sh.qp, p, None,
+                    decisions, refs_padded, sh.qp, p, wp_native,
                     self.pps.sign_data_hiding, p.rdoq_level,
                     slice_type=slice_type, device=self.device)
             if pre is not None:
+                # the writer and the deblock edge maps consume the
+                # device's RQT choice (one source of truth)
                 decisions.tusplit8 = pre.get("tusplit8")
         # the native walk reads reference PIXELS only for inter CUs
         # not covered by the device residual tensors (has8 == 0);
@@ -847,8 +937,9 @@ class Encoder:
         else:
             zp = self._zero_padded_ref(pad)
             refs_native = tuple([zp] * len(lst) for lst in refs_padded)
-        with scope("finalize"):
-            slice_data, recon, _cbf4, _qp_actual = native.encode_slice_px(
+
+        def run_native(pre_arg, sp=None, collect_arg=None):
+            return native.encode_slice_px(
                 np.asarray(y), np.asarray(cb), np.asarray(cr),
                 decisions.cu_log2_map, decisions.luma_mode8,
                 decisions.chroma_mode8, decisions.inter8, decisions.dir8,
@@ -857,15 +948,217 @@ class Encoder:
                 p.ctb_log2, p.min_cb_log2, sh.qp, False,
                 self.pps.sign_data_hiding, p.intra_smoothing,
                 p.cb_qp_offset, p.cr_qp_offset,
-                qp_map=decisions.qp_map,
+                sao_params=sp, sao_luma=sp is not None,
+                sao_chroma=sp is not None, qp_map=decisions.qp_map,
                 bit_depth=p.bit_depth, ref8=decisions.ref8,
-                rdoq_level=0, col=col,
+                rdoq_level=0, weights=wp_native, col=col,
                 col_from_l0=int(sh.collocated_from_l0),
-                pre=pre, tu_inter_depth=p.tu_inter_depth)
-        # the recon is the next pictures' reference: one upload, then the
-        # search and MC layouts are derived and cached on the device
-        return slice_data, FramePlanes(host=recon, bd=p.bit_depth,
-                                       device=self.device)
+                pre=pre_arg, collect=collect_arg,
+                tu_inter_depth=p.tu_inter_depth)
+
+        # with SAO on, the first walk is collect-only (CABAC disabled):
+        # it gathers every TB's levels/cbf + the recon, the loop filter
+        # + SAO decision run on those, and ONE real CABAC pass replays
+        # them emit-only (x265 derives SAO from stats without
+        # re-encoding, sao.cpp:1225)
+        collect_bufs = None
+        if sao_on:
+            h8n, w8n = p.height >> 3, p.width >> 3
+            collect_bufs = {
+                "lvl_y": np.zeros((p.height, p.width), np.int16),
+                "lvl_cb": np.zeros((p.height // 2, p.width // 2), np.int16),
+                "lvl_cr": np.zeros((p.height // 2, p.width // 2), np.int16),
+                "cbf8": np.zeros((h8n, w8n), np.uint8),
+                "has8": np.zeros((h8n, w8n), np.uint8),
+                # the replay pass re-walks the same RQT choices
+                "tusplit8": (pre["tusplit8"] if pre is not None
+                             and pre.get("tusplit8") is not None
+                             else np.zeros((h8n, w8n), np.uint8))}
+        with scope("finalize"):
+            slice_data, recon, cbf4, qp_actual = run_native(
+                pre, collect_arg=collect_bufs)
+        # the emit-only replay pass needs the PRE-loop-filter recon
+        # (native pre-fills its working planes with it)
+        pre_lf_recon = recon
+        qp_arg = qp_actual if decisions.qp_map is not None else sh.qp
+        # deblock on the device; with SAO on, the EO/BO statistics of
+        # the deblocked recon come with it. The filtered planes STAY on
+        # the device (keep_device): they are the next pictures'
+        # references.
+        keep_dev = bool(self.use_tpu_loopfilter and p.deblock)
+        sao_src = (y, cb, cr) if sao_on else None
+        if slice_type == SLICE_I:
+            fin_lf = self._deblock_intra_recon(
+                recon, decisions, qp_arg, sao_src=sao_src, sync=False,
+                keep_device=keep_dev)
+        else:
+            fin_lf = self._deblock_inter_recon(
+                recon, decisions, cbf4, ref_poc, qp_arg, sao_src=sao_src,
+                sync=False, keep_device=keep_dev)
+        # device filter in flight: the caller may overlap host work
+        yield
+        out_lf = fin_lf()
+        if sao_on:
+            from x265_tpu_torch.hevc import sao as sao_mod
+            recon, stats = out_lf
+            with scope("sao_analyze"):
+                sp = sao_mod.analyze_frame((y, cb, cr), recon, p.ctb_log2,
+                                           sh.qp, p.bit_depth, stats=stats,
+                                           device=self.device)
+            self._last_sao = sp
+            sh.sao_luma = sh.sao_chroma = True
+            replay = {**collect_bufs,
+                      "rec_y": pre_lf_recon[0].astype(np.int16),
+                      "rec_cb": pre_lf_recon[1].astype(np.int16),
+                      "rec_cr": pre_lf_recon[2].astype(np.int16)}
+            with scope("finalize"):
+                slice_data = run_native(replay, sp)[0]
+            with scope("loopfilter"):
+                if keep_dev:
+                    from x265_tpu_torch.models.loopfilter import (
+                        sao_apply_device)
+                    recon = FramePlanes(
+                        dev=sao_apply_device(recon, sp, p.ctb_log2,
+                                             p.bit_depth),
+                        bd=p.bit_depth)
+                else:
+                    recon = sao_mod.apply_frame(recon, sp, p.ctb_log2,
+                                                p.bit_depth)
+        else:
+            recon = out_lf
+            if keep_dev:
+                recon = FramePlanes(dev=recon, bd=p.bit_depth)
+        if not isinstance(recon, FramePlanes):
+            # host planes (no device filter ran): one upload, then the
+            # search and MC layouts are derived and cached on the device
+            recon = FramePlanes(host=recon, bd=p.bit_depth,
+                                device=self.device)
+        return slice_data, recon
+
+    def _deblock_intra_recon(self, recon, decisions, qp, sao_src=None,
+                             sync=True, keep_device=False):
+        """Deblock the recon returned by the native intra finalizer.
+
+        All-intra => bS=2 at every CU(==TU/PU) boundary on the 8-grid
+        regardless of cbf (spec 8.7.2.4), so the edge maps derive from the
+        CU-size map alone. Runs on the device (models/loopfilter.py);
+        with sao_src the SAO statistics come with it and (recon, stats)
+        is returned."""
+        p = self.param
+        if not p.deblock:
+            res = recon if sao_src is None else (recon, None)
+            return res if sync else (lambda: res)
+        from x265_tpu_torch.hevc.deblock import NOPOC, DeblockState
+        h, w = p.height, p.width
+        h4, w4 = (h + 3) // 4, (w + 3) // 4
+        cl4 = np.repeat(np.repeat(decisions.cu_log2_map, 2, 0),
+                        2, 1)[:h4, :w4]
+        st = DeblockState(h, w)
+        xs = (np.arange(w4) * 4)[None, :]
+        ys = (np.arange(h4) * 4)[:, None]
+        st.edge_v = (xs % (1 << cl4)) == 0
+        st.edge_h = (ys % (1 << cl4)) == 0
+        is_intra4 = np.ones((h4, w4), dtype=bool)
+        mv4 = np.zeros((h4, w4, 2, 2), dtype=np.int32)
+        refpoc4 = np.full((h4, w4, 2), NOPOC, dtype=np.int64)
+        return self._run_loopfilter(recon, st, is_intra4, mv4, refpoc4,
+                                    qp, sao_src, sync=sync,
+                                    keep_device=keep_device)
+
+    def _run_loopfilter(self, recon, st, is_intra4, mv4, refpoc4, qp,
+                        sao_src, sync=True, keep_device=False):
+        """Run the deblock (+SAO statistics) on the device, or the numpy
+        reference when use_tpu_loopfilter is off (differential testing).
+        sync=False returns a finisher. keep_device: the filtered planes
+        stay on the device (only the SAO statistics are downloaded); the
+        caller wraps them in FramePlanes."""
+        p = self.param
+        if self.use_tpu_loopfilter:
+            from x265_tpu_torch.models.loopfilter import deblock_frame_device
+            from x265_tpu_torch.utils.profiling import scope
+
+            with scope("loopfilter"):
+                fin = deblock_frame_device(
+                    recon, st, is_intra4, mv4, refpoc4, qp,
+                    p.deblock_beta_offset, p.deblock_tc_offset,
+                    p.cb_qp_offset, p.cr_qp_offset, p.bit_depth,
+                    sao_src=sao_src, ctb_log2=p.ctb_log2, sync=False,
+                    keep_device=keep_device, device=self.device)
+
+            def finish():
+                with scope("loopfilter"):
+                    out = fin()
+                if sao_src is None or keep_device:
+                    # keep_device already returns ((y,cb,cr), stats) or
+                    # the bare device planes
+                    return out
+                return out[:3], out[3]
+            return finish if not sync else finish()
+        from x265_tpu_torch.hevc.deblock import deblock_frame
+        yy, cbb, crr = deblock_frame(
+            np.asarray(recon[0]).astype(np.int32),
+            np.asarray(recon[1]).astype(np.int32),
+            np.asarray(recon[2]).astype(np.int32), st, is_intra4, mv4,
+            refpoc4, qp, p.deblock_beta_offset, p.deblock_tc_offset,
+            p.cb_qp_offset, p.cr_qp_offset, p.bit_depth)
+        res = (yy, cbb, crr) if sao_src is None else ((yy, cbb, crr), None)
+        # the numpy route computes eagerly; async just wraps the value
+        return (lambda: res) if not sync else res
+
+    def _deblock_inter_recon(self, recon, decisions, cbf4, ref_poc, qp,
+                             sao_src=None, sync=True, keep_device=False):
+        """Deblock a native-finalizer recon using the decision maps (CU ==
+        TU == PU boundaries) + the native cbf map, on the device; with
+        sao_src the SAO statistics come with it and (recon, stats)
+        returns."""
+        p = self.param
+        if not p.deblock:
+            res = recon if sao_src is None else (recon, None)
+            return res if sync else (lambda: res)
+        from x265_tpu_torch.hevc.deblock import DeblockState, NOPOC
+        h, w = p.height, p.width
+        h4, w4 = (h + 3) // 4, (w + 3) // 4
+
+        def to4(m):
+            return np.repeat(np.repeat(m, 2, 0), 2, 1)[:h4, :w4]
+
+        # TU grid: a 64 CU transforms as 4x32 TUs (implicit RQT split),
+        # so TU edges cap at 32; explicitly split 16/32 CUs
+        # (decisions.tusplit8) halve again; BS stays 0 on the internal
+        # TU edges unless cbf is set
+        cl4 = to4(decisions.cu_log2_map)
+        if decisions.tusplit8 is not None:
+            cl4 = cl4 - to4(decisions.tusplit8.astype(np.int32))
+        cl4 = np.minimum(cl4, 5)
+        st = DeblockState(h, w)
+        xs = (np.arange(w4) * 4)[None, :]
+        ys = (np.arange(h4) * 4)[:, None]
+        st.edge_v = (xs % (1 << cl4)) == 0
+        st.edge_h = (ys % (1 << cl4)) == 0
+        st.cbf4 = np.asarray(cbf4, dtype=bool)
+        inter4 = to4(decisions.inter8.astype(bool))
+        is_intra4 = ~inter4
+        dir4 = to4(decisions.dir8)
+        mv4 = np.zeros((h4, w4, 2, 2), dtype=np.int32)
+        mv4[..., 0, :] = np.where(((dir4 & 1) > 0)[..., None],
+                                  to4(decisions.mv8[:, :, 0]), 0)
+        mv4[..., 1, :] = np.where(((dir4 & 2) > 0)[..., None],
+                                  to4(decisions.mv8[:, :, 1]), 0)
+        mv4[is_intra4] = 0
+        refpoc4 = np.full((h4, w4, 2), NOPOC, dtype=np.int64)
+        if ref_poc[0]:
+            pocs0 = np.asarray(ref_poc[0], dtype=np.int64)
+            r4 = (to4(decisions.ref8) if decisions.ref8 is not None
+                  else np.zeros((h4, w4), np.int32))
+            r4 = np.clip(r4, 0, len(pocs0) - 1)
+            refpoc4[..., 0] = np.where(inter4 & ((dir4 & 1) > 0),
+                                       pocs0[r4], NOPOC)
+        if ref_poc[1]:
+            refpoc4[..., 1] = np.where(inter4 & ((dir4 & 2) > 0),
+                                       ref_poc[1][0], NOPOC)
+        return self._run_loopfilter(recon, st, is_intra4, mv4, refpoc4,
+                                    qp, sao_src, sync=sync,
+                                    keep_device=keep_device)
 
     def _adopt_coherent(self, y, refs0, refs1, dir_blk, mv_blk, ref_blk,
                         inter_blk, satd_now, bits_now, lam, qp):

@@ -4,9 +4,16 @@ Usage:
     python -m x265_tpu_torch.cli --input in.y4m --output out.hevc \
         --preset ultrafast --tune zerolatency --qp 30 --scenecut 0 \
         [--frames N] [--device cpu]
+    python -m x265_tpu_torch.cli --input in.y4m --output out.hevc \
+        --preset fast --tune zerolatency --qp 30 --scenecut 0 \
+        [--no-deblock] [--no-sao] [--aq-mode N] [--aq-strength X]
+        [--no-weightp]
 
-Runs on the CUDA device unless --device says otherwise. Options outside
-the ported slice make the encoder raise NotImplementedError.
+Every other long option of x265 (--deblock, --sao, --aq-mode,
+--aq-strength, --weightp and their --no- forms among them) goes through
+param_parse. Runs on the CUDA device unless --device says otherwise.
+Options outside the ported slices make the encoder raise
+NotImplementedError.
 """
 from __future__ import annotations
 

@@ -14,14 +14,14 @@
 // 2*taps multiply-adds per output). Design: one block per lane; the
 // window is staged once in shared memory as int32, the horizontal pass
 // writes a second shared array, the vertical pass writes the output
-// with contiguous stores. The largest case (n=32, taps=8, side=39)
-// needs 39*39*4 + 39*32*4 = 11 KB of shared memory, so many lanes are
-// resident per SM.
+// with contiguous stores. Shared memory is sized per launch (dynamic):
+// 11 KB at n=32, taps=8 (side=39), so many lanes are resident per SM,
+// and 38 KB for the largest case, a 64x64 CU (side=71).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define MAX_SIDE 39
-#define MAX_N 32
+#define MAX_SIDE 71
+#define MAX_N 64
 #define MAX_TAPS 8
 
 __global__ void mc_gather_kernel(const int16_t* __restrict__ planes,
@@ -34,12 +34,13 @@ __global__ void mc_gather_kernel(const int16_t* __restrict__ planes,
                                  int32_t* __restrict__ out,
                                  int n, int taps, int bd, int R, int nphase,
                                  int Hp, int Wp) {
-  __shared__ int32_t win[MAX_SIDE * MAX_SIDE];
-  __shared__ int32_t hor[MAX_SIDE * MAX_N];
+  extern __shared__ int32_t sm[];         // win[side*side], hor[side*n]
   __shared__ int32_t fx[MAX_TAPS];
   __shared__ int32_t fy[MAX_TAPS];
   const int lane = blockIdx.x;
   const int side = n + taps - 1;
+  int32_t* win = sm;
+  int32_t* hor = sm + side * side;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int16_t* src =
@@ -88,7 +89,9 @@ extern "C" int x265_mc_gather_interp(const void* planes, const void* ridx,
   int threads = n * n;
   if (threads < 32) threads = 32;
   if (threads > 256) threads = 256;
-  mc_gather_kernel<<<N, threads, 0, (cudaStream_t)stream>>>(
+  const int side = n + taps - 1;
+  const size_t smem = (size_t)(side * side + side * n) * sizeof(int32_t);
+  mc_gather_kernel<<<N, threads, smem, (cudaStream_t)stream>>>(
       (const int16_t*)planes, (const int32_t*)ridx, (const int32_t*)oy,
       (const int32_t*)ox, (const int32_t*)xf, (const int32_t*)yf,
       (const int32_t*)filt, (int32_t*)out, n, taps, bd, R, nphase, Hp, Wp);

@@ -9,9 +9,10 @@ refine motion.cpp:624 area) as dense frame-level computation:
   8-tap interpolation, then refinement rounds evaluate 9 candidates per
   block with batched SATD + mv cost.
 
-The window gathers (tile_gather, tile_gather_planes) and the SATD are
-hand-written CUDA kernels (ops/cuda_mc.py, ops/cuda_kernels.py); the
-rest is plain PyTorch. Ties keep the FIRST minimal candidate everywhere,
+The window gathers (tile_gather, tile_gather_planes), the SATD and the
+dense SAD sweep with its argmin are hand-written CUDA kernels
+(ops/cuda_mc.py, ops/cuda_kernels.py); the rest is plain PyTorch. Ties
+keep the FIRST minimal candidate everywhere,
 as the scans and argmins of the JAX package do.
 
 MV cost model: quarter-pel exp-Golomb-ish bit estimate against the
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from x265_tpu_torch.models.intra_frame import first_argmin
+from x265_tpu_torch.ops.cuda_kernels import sad_sweep_argmin
 from x265_tpu_torch.ops.cuda_kernels import satd as _satd_kernel
 from x265_tpu_torch.ops.cuda_mc import tile_gather_planes
 from x265_tpu_torch.ops.ref.interp import LUMA_FILTERS
@@ -238,36 +240,17 @@ def _median3x3_dev(mv):
 
 
 def _int_stage(cur, ref_R, mvcost_flat, S, R):
-    """Dense integer search body (one ref). ref_R padded by R. One step
-    per dy covers every dx of that row at once; inside a row the first
-    minimum wins, across rows a strict < keeps the earlier one — the
-    same winner as a displacement-by-displacement scan in dy-major
-    order. int16 differences, int32 block sums."""
-    H, W = cur.shape
-    nby, nbx = H // S, W // S
+    """Dense integer search body (one ref). ref_R padded by R. The
+    displacement sweep, the mv cost and the first-minimum argmin are one
+    fused kernel on a CUDA device (ops.cuda_kernels.sad_sweep_argmin);
+    here only the index-to-mv arithmetic is left."""
     n = 2 * R + 1
-    dev = cur.device
-    cur16 = cur.to(torch.int16)
-    ref16 = ref_R.to(torch.int16)
-    mvc = mvcost_flat.reshape(n, n)
-    best_cost = torch.full((nby, nbx), float("inf"), dtype=torch.float32,
-                           device=dev)
-    best_idx = torch.zeros((nby, nbx), dtype=torch.int64, device=dev)
-    for dy in range(n):
-        win = ref16[dy:dy + H, :].unfold(1, W, 1)           # [H, n, W]
-        ad = (cur16[:, None, :] - win).abs()
-        sad = ad.reshape(nby, S, n, nbx, S).sum(dim=(1, 4),
-                                                dtype=torch.int32)
-        cost = sad.to(torch.float32) + mvc[dy][None, :, None]  # [nby,n,nbx]
-        k = first_argmin(cost, 1)
-        c = torch.gather(cost, 1, k[:, None, :])[:, 0, :]
-        upd = c < best_cost
-        best_cost = torch.where(upd, c, best_cost)
-        best_idx = torch.where(upd, dy * n + k, best_idx)
-    mv = torch.stack([best_idx % n - R,
-                      torch.div(best_idx, n, rounding_mode="floor") - R],
-                     dim=-1).to(torch.int32)
-    return mv
+    idx, _ = sad_sweep_argmin(
+        cur.to(torch.int16).contiguous(), ref_R.to(torch.int16).contiguous(),
+        mvcost_flat.to(torch.float32).contiguous(), S, R)
+    return torch.stack([idx % n - R,
+                        torch.div(idx, n, rounding_mode="floor") - R],
+                       dim=-1).to(torch.int32)
 
 
 def _block_grid(nby, nbx, device):

@@ -89,6 +89,20 @@ class FramePlanes:
                 for i, pl in enumerate(self.host()))
         return self._derived[key]
 
+    def host_decimated4(self):
+        """(y, cb, cr)[::4, ::4] on the host, downloaded decimated (the
+        weightp moment fit reads only this grid — 1/16 of the bytes)."""
+        key = "dec4"
+        if key not in self._derived:
+            if self._host is not None:
+                self._derived[key] = tuple(np.asarray(p)[::4, ::4]
+                                           for p in self._host)
+            else:
+                self._derived[key] = tuple(
+                    p[::4, ::4].contiguous().cpu().numpy()
+                    for p in self._dev)
+        return self._derived[key]
+
     # --- device side ---
     def dev(self):
         """(y, cb, cr) device planes, int16, unpadded."""

@@ -17,9 +17,9 @@ Bit-exactness notes: the 8/4-tap MC uses the same "tap-0 == 64" algebra
 as mc_14 (slice_writer.cpp:491) — the generic separable path equals every
 xf/yf special case exactly because 64 = 2^6 divides the stage shifts.
 
-Ported so far: uni-directional prediction from list 0 without weights,
-TU == CU (64x64 CUs as four 32x32 quadrants). Bi-prediction, explicit
-weights, RDOQ, scaling lists and the explicit RQT level raise.
+Ported so far: uni-directional prediction from list 0, with or without
+explicit weights, TU == CU (64x64 CUs as four 32x32 quadrants).
+Bi-prediction, RDOQ, scaling lists and the explicit RQT level raise.
 """
 from __future__ import annotations
 
@@ -113,8 +113,9 @@ def _inter_class_body(src_y, src_cb, src_cr,
 
     xy [N,2] luma top-left; mv [N,2,2] (list, x/y) qpel; dirm [N] (all
     1: list 0 only); ref_i [N] L0 ref; qp [N] slice/CTB QpY (pre bd
-    offset). The r1*, wp, wld, wcd arguments keep the JAX signature;
-    this slice predicts from list 0 without weights.
+    offset); wp [4,3,3] int32 (flag, weight, offset) explicit L0 weights
+    per reference and plane, or None; wld/wcd their log2 denominators.
+    The r1* arguments keep the JAX signature: prediction is from list 0.
     Returns (lvl_y [N,n,n], lvl_cb, lvl_cr [N,n/2,n/2], cbf [N,3] or
     [N,4,3], rec_y [N,n,n], rec_cb, rec_cr, tusplit [N]).
     """
@@ -133,7 +134,23 @@ def _inter_class_body(src_y, src_cb, src_cr,
         p14 = _mc_gather(planes0, ref_i, xx, yy, mv[:, 0, 0], mv[:, 0, 1],
                          filt, fb, size, taps, padc, bd)
         shift_u = 14 - bd
-        return ((p14 + (1 << (shift_u - 1))) >> shift_u).clamp_(0, maxv)
+        uni = ((p14 + (1 << (shift_u - 1))) >> shift_u).clamp_(0, maxv)
+        if wp is None:
+            return uni
+        # explicit weighted uni (L0 only, 8.5.4.2.3.2). int32 holds the
+        # product: |p14| < 2^15 and |weight| < 2^8; >> is arithmetic
+        we = wp[ref_i.long(), pl]                      # [N,3] flag,w,off
+        wflag = we[:, 0] > 0
+        denom = wld if pl == 0 else wcd                # one per slice
+        log2wd = denom + 14 - bd
+        o = (we[:, 2] << (bd - 8))[:, None, None]
+        wgt = we[:, 1][:, None, None]
+        if log2wd >= 1:
+            wv = (p14 * wgt + (1 << (log2wd - 1))) >> log2wd
+        else:
+            wv = p14 * wgt
+        wuni = (wv + o).clamp_(0, maxv)
+        return torch.where(wflag[:, None, None], wuni, uni)
 
     pred_y = pred_plane(0, r0y, n, 2, 8, _const_dev("luma", str(dev)), pad)
     pred_cb = pred_plane(1, r0cb, hs, 3, 4, _const_dev("chroma", str(dev)),
@@ -279,8 +296,8 @@ def build_inter_pre(src, decisions, refs_padded, qp_slice, p, wp_native,
     src: (y, cb, cr) numpy planes; decisions: FrameDecisions with
     inter8/dir8/mv8/ref8/cu_log2_map/qp_map; refs_padded: ([(y,cb,cr)
     padded int16 numpy, or FramePlanes] per list) — the same references
-    handed to the native call; wp_native must be None (explicit weights
-    are not ported yet).
+    handed to the native call; wp_native: (wp[4,3,3] int32, luma_denom,
+    chroma_denom) or None.
     Returns the `pre` dict for native.encode_slice_px, or None when there
     is nothing to precompute. Lanes are the true CU count of each size
     class: eager PyTorch has no compile to protect with a fixed batch
@@ -291,8 +308,6 @@ def build_inter_pre(src, decisions, refs_padded, qp_slice, p, wp_native,
     device = resolve_device(device)
     if decisions.inter8 is None or not np.any(decisions.inter8):
         return None
-    if wp_native is not None:
-        raise NotImplementedError("weighted prediction is not ported yet")
     if rdoq_level > 0 and not p.lossless:
         raise NotImplementedError("RDOQ is not ported yet")
     if refs_padded[1]:
@@ -368,12 +383,17 @@ def build_inter_pre(src, decisions, refs_padded, qp_slice, p, wp_native,
                             put(ref_i), put(qp_cu))))
     if not any_pre:
         return None
+    if wp_native is not None:
+        wp_arr = put(np.asarray(wp_native[0], np.int32))
+        wld, wcd = int(wp_native[1]), int(wp_native[2])
+    else:
+        wp_arr, wld, wcd = None, 0, 0
     rqt = bool(getattr(p, "tu_inter_depth", 1) >= 2
                and not p.lossless and not p.tskip)
     pouts = _inter_multi_planes(
         sy, scb, scr, r0y, r0cb, r0cr, None, None, None,
-        tuple(c[1] for c in classes), None, tuple(c[0] for c in classes),
-        bd, bool(sdh), False, bool(p.lossless), pad, 0, 0,
+        tuple(c[1] for c in classes), wp_arr, tuple(c[0] for c in classes),
+        bd, bool(sdh), False, bool(p.lossless), pad, wld, wcd,
         int(p.cb_qp_offset), int(p.cr_qp_offset),
         bool(p.scaling_lists), None, 0, rqt, None)
     (lvl_y, lvl_cb, lvl_cr, cbf8, has8, rec_y, rec_cb, rec_cr,

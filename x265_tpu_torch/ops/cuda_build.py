@@ -20,7 +20,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.normpath(os.path.join(_DIR, "..", "csrc"))
 _BUILD = os.path.normpath(os.path.join(_DIR, "..", "build"))
 _SO = os.path.join(_BUILD, "libx265torch_kernels.so")
-SOURCES = ("mc_gather.cu", "tile_gather.cu", "satd.cu")
+SOURCES = ("mc_gather.cu", "tile_gather.cu", "satd.cu", "sad_sweep.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()
@@ -35,6 +35,8 @@ _SIGNATURES = {
     "x265_mc_gather_interp": [_P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "x265_satd8": [_P, _P, _P, _I, _I, _P],
+    "x265_sad_sweep": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "x265_sad_sweep_argmin": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

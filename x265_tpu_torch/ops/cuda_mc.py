@@ -21,7 +21,8 @@ import torch
 from x265_tpu_torch.ops import cuda_build
 
 launches = {"mc_gather_interp": 0, "tile_gather": 0,
-            "tile_gather_planes": 0, "satd8x8": 0}
+            "tile_gather_planes": 0, "satd8x8": 0, "sad_sweep": 0,
+            "sad_sweep_argmin": 0}
 
 
 def reset_launches() -> None:
@@ -170,7 +171,7 @@ def mc_gather_interp(planes, ridx, oy, ox, xf, yf, filt,
     _check(filt, "filt", torch.int32, 2, dev)
     if filt.shape[1] != taps:
         raise ValueError(f"filt has {filt.shape[1]} taps, expected {taps}")
-    if taps not in (4, 8) or n not in (4, 8, 16, 32) or bd < 8:
+    if taps not in (4, 8) or n not in (4, 8, 16, 32, 64) or bd < 8:
         raise ValueError(f"unsupported (n, taps, bd) = ({n}, {taps}, {bd})")
     R, Hp, Wp = planes.shape
     side = n + taps - 1

@@ -92,3 +92,68 @@ def reference_to_numpy(ref):
             return tuple(np.asarray(p, np.int32) for p in ref.host())
         return tuple(to_numpy(p).astype(np.int32) for p in ref.dev())
     return tuple(np.asarray(p, np.int32) for p in ref)
+
+
+# ---- loop-filter, AQ and weighted-prediction state (all host numpy) ----
+
+_SAO_FIELDS = ("type_y", "class_y", "off_y", "type_c", "class_cb",
+               "class_cr", "off_cb", "off_cr")
+
+
+def sao_params_from_numpy(**maps):
+    """An SaoParams from the eight numpy parameter maps (copies)."""
+    from x265_tpu_torch.hevc.sao import SaoParams
+    if set(maps) != set(_SAO_FIELDS):
+        raise KeyError(sorted(set(maps) ^ set(_SAO_FIELDS)))
+    return SaoParams(**{k: np.array(v, np.int32) for k, v in maps.items()})
+
+
+def sao_params_to_numpy(sp) -> dict:
+    return {k: np.array(getattr(sp, k)) for k in _SAO_FIELDS}
+
+
+def deblock_state_from_numpy(height, width, edge_v, edge_h, cbf4,
+                             bypass4=None, is_intra4=None, mv4=None,
+                             refpoc4=None):
+    """(DeblockState, is_intra4, mv4, refpoc4): the state hevc.deblock and
+    models.loopfilter filter from, with its boundary-strength inputs.
+    Omitted bS inputs mean an all-intra picture."""
+    from x265_tpu_torch.hevc.deblock import NOPOC, DeblockState
+    st = DeblockState(height, width)
+    h4, w4 = st.cbf4.shape
+    st.edge_v = np.array(edge_v, bool)
+    st.edge_h = np.array(edge_h, bool)
+    st.cbf4 = np.array(cbf4, bool)
+    if bypass4 is not None:
+        st.bypass4 = np.array(bypass4, bool)
+    if is_intra4 is None:
+        is_intra4 = np.ones((h4, w4), bool)
+    if mv4 is None:
+        mv4 = np.zeros((h4, w4, 2, 2), np.int32)
+    if refpoc4 is None:
+        refpoc4 = np.full((h4, w4, 2), NOPOC, np.int64)
+    return (st, np.array(is_intra4, bool), np.array(mv4, np.int32),
+            np.array(refpoc4, np.int64))
+
+
+def qp_map_from_numpy(qp_map):
+    """A per-CTU QP map as FrameDecisions.qp_map holds it (int32 copy)."""
+    return np.array(qp_map, np.int32)
+
+
+def weights_from_numpy(wl=None, wc=None):
+    """Explicit L0 weights of the nearest reference as the slice header
+    and build_inter_pre take them: wl = (weight, offset) or None,
+    wc = ((w_cb, o_cb), (w_cr, o_cr)) or None. Returns the native
+    writer's (table [4,3,3] int32, luma denom, chroma denom), or None
+    when neither is set."""
+    from x265_tpu_torch.engine.weightp import DENOM
+    if wl is None and wc is None:
+        return None
+    wp = np.zeros((4, 3, 3), np.int32)
+    if wl is not None:
+        wp[0, 0] = (1, int(wl[0]), int(wl[1]))
+    if wc is not None:
+        wp[0, 1] = (1, int(wc[0][0]), int(wc[0][1]))
+        wp[0, 2] = (1, int(wc[1][0]), int(wc[1][1]))
+    return wp, DENOM if wl is not None else 0, DENOM if wc is not None else 0
