@@ -64,18 +64,61 @@ def smi():
         check=True).stdout.strip().splitlines()[0]
 
 
+_spin_cycles_per_ms = None
+
+
+def hold_device(ms=2.0):
+    """Keep the device spinning for about `ms`, so that what the host
+    queues next starts back to back when the spin ends: a wrapper call
+    costs the host tens of microseconds, more than some kernels run. The
+    spin counts clock cycles; how many make a millisecond on this card at
+    this moment is measured once, from a spin of ten million."""
+    global _spin_cycles_per_ms
+    if _spin_cycles_per_ms is None:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10_000_000)              # clocks up
+        a.record()
+        torch.cuda._sleep(10_000_000)
+        b.record()
+        torch.cuda.synchronize()
+        _spin_cycles_per_ms = 10_000_000 / a.elapsed_time(b)
+    torch.cuda._sleep(int(ms * _spin_cycles_per_ms))
+
+
 def time_ms(fn, reps=20):
+    """Device time of one call: CUDA events around `reps` calls that the
+    host queued while the device was held, inputs hot in L2."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    hold_device()
     a.record()
     for _ in range(reps):
         fn()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def time_cold_ms(fn, reps=10):
+    """Device time of one call that finds L2 cold: before every call a
+    256 MB write replaces what the 50 MB L2 holds (and keeps the device
+    busy while the host queues the call). The median of `reps` calls."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    times = []
+    for _ in range(reps + 2):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times[2:]))
 
 
 def slice_params(w, h):
@@ -103,18 +146,20 @@ def plain_versions():
     encode on the card can be held against the kernels' encode. The
     package itself has no such switch."""
     saved = (inter_residual.tile_gather, inter_residual.mc_gather_interp,
-             me.tile_gather_planes, me._satd_kernel, me.sad_sweep_argmin)
+             me.tile_gather_planes, me.tile_gather_planes_satd,
+             me._satd_kernel, me.sad_sweep_argmin)
     inter_residual.tile_gather = cuda_mc.tile_gather_plain
     inter_residual.mc_gather_interp = cuda_mc.mc_gather_interp_plain
     me.tile_gather_planes = cuda_mc.tile_gather_planes_plain
+    me.tile_gather_planes_satd = cuda_mc.tile_gather_planes_satd_plain
     me._satd_kernel = cuda_kernels.satd_plain
     me.sad_sweep_argmin = cuda_kernels.sad_sweep_argmin_plain
     try:
         yield
     finally:
         (inter_residual.tile_gather, inter_residual.mc_gather_interp,
-         me.tile_gather_planes, me._satd_kernel,
-         me.sad_sweep_argmin) = saved
+         me.tile_gather_planes, me.tile_gather_planes_satd,
+         me._satd_kernel, me.sad_sweep_argmin) = saved
 
 
 def rnd_i32(rng, lo, hi, n):
@@ -140,6 +185,108 @@ def check_equal(name, got, want):
     if err != 0:
         fail(f"{name}: kernel differs from plain version, max abs {err}")
     return err
+
+
+def edge_planes(rng, P, hp, wp, maxv, shift):
+    """[P, hp, wp] int16 planes whose first element lies `shift` int16s
+    past a 16-byte boundary (a view into a larger buffer)."""
+    buf = torch.from_numpy(rng.integers(
+        0, maxv + 1, P * hp * wp + 8).astype(np.int16)).to(DEV)
+    return buf[shift:shift + P * hp * wp].view(P, hp, wp)
+
+
+def edge_lanes(rng, L, P, hp, wp, n):
+    """Lane arrays with the corners, origins far outside the planes, odd
+    and even x, and plane indices -1 and P among random lanes."""
+    ridx = rnd_i32(rng, 0, P, L)
+    oy = rnd_i32(rng, 0, hp - n + 1, L)
+    ox = rnd_i32(rng, 0, wp - n + 1, L)
+    ys = [0, hp - n, 0, hp - n] + FAR + [1, 2]
+    xs = [0, wp - n, wp - n, 0] + FAR[::-1] + [1, 2]
+    m = min(L, len(ys))
+    oy[:m] = torch.tensor(ys[:m], device=DEV)
+    ox[:m] = torch.tensor(xs[:m], device=DEV)
+    if L >= 12:
+        ridx[10:12] = torch.tensor([-1, P], device=DEV)
+    elif L == 1:
+        ridx[0] = -1
+    return ridx, oy, ox
+
+
+def gather_edge_cases(rng):
+    """tile_gather, tile_gather_planes and tile_gather_planes_satd against
+    their plain versions (exact) over every tile size the kernels treat
+    differently, odd and even plane pitch, a planes pointer off the
+    16-byte grid, and lane counts of 1, 1003 and a multiple of any group."""
+    P, hp = 3, 200
+    pl = edge_planes(rng, P, hp, 334, 255, 0)
+    ridx, oy, ox = edge_lanes(rng, 37, P, hp, 334, 100)
+    for call in (lambda: cuda_mc.tile_gather(pl[1], oy, ox, 100),
+                 lambda: cuda_mc.tile_gather_planes(pl, ridx, oy, ox, 100)):
+        try:
+            call()
+        except ValueError:
+            continue
+        fail("a 100x100 tile (too large to stage) was not refused")
+    for wp, shift in ((334, 0), (333, 3)):
+        pl = edge_planes(rng, P, hp, wp, 255, shift)
+        for n in (4, 7, 8, 16, 23, 30, 32, 64, 78):
+            for N in ((37,) if n == 78 else (1, 1003, 1024)):
+                ridx, oy, ox = edge_lanes(rng, N, P, hp, wp, n)
+                what = f"edge n={n} N={N} pitch={wp}"
+                check_equal("tile_gather " + what,
+                            cuda_mc.tile_gather(pl[1], oy, ox, n),
+                            cuda_mc.tile_gather_plain(pl[1], oy, ox, n))
+                check_equal(
+                    "tile_gather_planes " + what,
+                    cuda_mc.tile_gather_planes(pl, ridx, oy, ox, n),
+                    cuda_mc.tile_gather_planes_plain(pl, ridx, oy, ox, n))
+        for maxv in (255, 1023):                    # 8-bit and 10-bit samples
+            pl = edge_planes(rng, P, hp, wp, maxv, shift)
+            for S in (8, 16, 32):
+                for K in (1, 9):
+                    for N in (1, 1003, 64):
+                        ridx, oy, ox = edge_lanes(rng, K * N, P, hp, wp, S)
+                        cur = rnd_i32(rng, 0, maxv + 1,
+                                      N * S * S).reshape(N, S, S)
+                        a = (pl, ridx, oy, ox, cur, S)
+                        check_equal(
+                            f"tile_gather_planes_satd edge S={S} K={K} "
+                            f"N={N} pitch={wp} max={maxv}",
+                            cuda_mc.tile_gather_planes_satd(*a),
+                            cuda_mc.tile_gather_planes_satd_plain(*a))
+                # a block scored against its own window: SATD 0
+                ridx, oy, ox = edge_lanes(rng, 1003, P, hp, wp, S)
+                cur = cuda_mc.tile_gather_planes_plain(pl, ridx, oy, ox, S)
+                got = cuda_mc.tile_gather_planes_satd(pl, ridx, oy, ox,
+                                                      cur, S)
+                torch.cuda.synchronize()
+                if int(got.abs().max()) != 0:
+                    fail(f"tile_gather_planes_satd S={S}: cur == window "
+                         "must give 0")
+
+
+def coherent_lanes(rng, R):
+    """Lanes as the encoder makes them at 1080p: the 16x16 blocks in raster
+    order around a smooth motion field. For tile_gather the 30x30 search
+    patches at the integer vectors (plane padded by R); for the subpel
+    round the 9 half-pel candidates of every block (phase planes padded by
+    R + 2). The timed rows use random origins; these show what the order
+    of the lanes is worth."""
+    Nb = 68 * 120
+    by, bx = np.divmod(np.arange(Nb), 120)
+    mv = (rng.integers(-3, 4, (Nb, 2)) + np.array([9, -6])).astype(np.int64)
+
+    def t32(a):
+        return torch.from_numpy(
+            np.ascontiguousarray(a, dtype=np.int32)).to(DEV)
+    patch = (t32(by * 16 + (mv[:, 1] >> 2) + R - 7),
+             t32(bx * 16 + (mv[:, 0] >> 2) + R - 7))
+    cand = mv[None] * 4 + me._HALF_OFFS.astype(np.int64)[:, None]  # [9,Nb,2]
+    subpel = (t32(((cand[..., 1] & 3) * 4 + (cand[..., 0] & 3)).ravel()),
+              t32(((cand[..., 1] >> 2) + by * 16 + R + 2).ravel()),
+              t32(((cand[..., 0] >> 2) + bx * 16 + R + 2).ravel()))
+    return patch, subpel
 
 
 def kernel_phase():
@@ -194,22 +341,14 @@ def kernel_phase():
             lambda: cuda_mc.mc_gather_interp_plain(planes_y, *a), 5),
         bytes=nbytes, ops=nops, library_ms=None)
 
+    # --- the two gathers and the fused gather + SATD: edge cases --------
+    gather_edge_cases(rng)
+
     # --- tile_gather: 30x30 search patches of the integer refine --------
     R = 57
     Hr, Wr = 1088 + 2 * R, W + 2 * R
     plane = torch.from_numpy(
         rng.integers(0, 256, (Hr, Wr)).astype(np.int16)).to(DEV)
-    for n in (4, 8, 16, 30, 32):
-        N = 1003
-        oy = rnd_i32(rng, 0, Hr - n + 1, N)
-        ox = rnd_i32(rng, 0, Wr - n + 1, N)
-        oy[:2] = torch.tensor([0, Hr - n], device=DEV)
-        ox[:2] = torch.tensor([Wr - n, 0], device=DEV)
-        oy[2:6] = torch.tensor(FAR, device=DEV)
-        ox[2:6] = torch.tensor(FAR[::-1], device=DEV)
-        check_equal(f"tile_gather edge n={n}",
-                    cuda_mc.tile_gather(plane, oy, ox, n),
-                    cuda_mc.tile_gather_plain(plane, oy, ox, n))
     n, N = 30, 68 * 120
     oy = rnd_i32(rng, 0, Hr - n + 1, N)
     ox = rnd_i32(rng, 0, Wr - n + 1, N)
@@ -217,31 +356,27 @@ def kernel_phase():
                       cuda_mc.tile_gather_plain(plane, oy, ox, n))
     idx = cuda_mc._window_index(oy, ox, n, Hr, Wr)
     flat = plane.reshape(-1)
+    (coy, cox), co3 = coherent_lanes(rng, R)
+    check_equal("tile_gather, coherent lanes",
+                cuda_mc.tile_gather(plane, coy, cox, n),
+                cuda_mc.tile_gather_plain(plane, coy, cox, n))
     rows["tile_gather"] = dict(
         shape=f"plane[{Hr},{Wr}] N={N} n=30", max_abs_err=err,
         ms=time_ms(lambda: cuda_mc.tile_gather(plane, oy, ox, n)),
+        cold_l2_ms=time_cold_ms(lambda: cuda_mc.tile_gather(plane, oy, ox, n)),
+        coherent_ms=time_ms(lambda: cuda_mc.tile_gather(plane, coy, cox, n)),
         plain_ms=time_ms(lambda: cuda_mc.tile_gather_plain(plane, oy, ox, n)),
         bytes=gather_bytes(Hr * Wr, N, n, N * n * n, 2), ops=0,
         library_ms=time_ms(lambda: torch.take(flat, idx)))
+    del idx
 
     # --- tile_gather_planes: one subpel refine round (9 candidates) ------
     margin = R + 2
     Hm, Wm = 1088 + 2 * margin, W + 2 * margin
     pp = torch.from_numpy(
         rng.integers(0, 256, (16, Hm, Wm)).astype(np.int16)).to(DEV)
-    n, N = 16, 1003
-    ridx = (torch.arange(N, device=DEV, dtype=torch.int32) % 16).contiguous()
-    oy = rnd_i32(rng, 0, Hm - n + 1, N)
-    ox = rnd_i32(rng, 0, Wm - n + 1, N)
-    oy[:2] = torch.tensor([0, Hm - n], device=DEV)
-    ox[:2] = torch.tensor([Wm - n, 0], device=DEV)
-    oy[2:6] = torch.tensor(FAR, device=DEV)
-    ox[2:6] = torch.tensor(FAR[::-1], device=DEV)
-    ridx[6:8] = torch.tensor([-1, 16], device=DEV)
-    check_equal("tile_gather_planes edge",
-                cuda_mc.tile_gather_planes(pp, ridx, oy, ox, n),
-                cuda_mc.tile_gather_planes_plain(pp, ridx, oy, ox, n))
-    N = 9 * 68 * 120
+    n, Nb, K = 16, 68 * 120, 9
+    N = K * Nb
     ridx = rnd_i32(rng, 0, 16, N)
     oy = rnd_i32(rng, 0, Hm - n + 1, N)
     ox = rnd_i32(rng, 0, Wm - n + 1, N)
@@ -251,13 +386,46 @@ def kernel_phase():
     idx = (cuda_mc._window_index(oy, ox, n, Hm, Wm)
            + ridx.long()[:, None, None] * (Hm * Wm))
     flat = pp.reshape(-1)
+    check_equal("tile_gather_planes, coherent lanes",
+                cuda_mc.tile_gather_planes(pp, *co3, n),
+                cuda_mc.tile_gather_planes_plain(pp, *co3, n))
     rows["tile_gather_planes"] = dict(
         shape=f"planes[16,{Hm},{Wm}] N={N} n=16", max_abs_err=err,
         ms=time_ms(lambda: cuda_mc.tile_gather_planes(pp, ridx, oy, ox, n)),
+        cold_l2_ms=time_cold_ms(
+            lambda: cuda_mc.tile_gather_planes(pp, ridx, oy, ox, n)),
+        coherent_ms=time_ms(
+            lambda: cuda_mc.tile_gather_planes(pp, *co3, n)),
         plain_ms=time_ms(
             lambda: cuda_mc.tile_gather_planes_plain(pp, ridx, oy, ox, n)),
         bytes=gather_bytes(16 * Hm * Wm, N, n, N * n * n, 3), ops=0,
         library_ms=time_ms(lambda: torch.take(flat, idx)))
+    del idx
+
+    # --- tile_gather_planes_satd: the same round, scored, nothing written
+    cur_b = rnd_i32(rng, 0, 256, Nb * n * n).reshape(Nb, n, n)
+    fa = (pp, ridx, oy, ox, cur_b, n)
+    fc = (pp, *co3, cur_b, n)
+    err = check_equal("tile_gather_planes_satd",
+                      cuda_mc.tile_gather_planes_satd(*fa),
+                      cuda_mc.tile_gather_planes_satd_plain(*fa))
+    check_equal("tile_gather_planes_satd, coherent lanes",
+                cuda_mc.tile_gather_planes_satd(*fc),
+                cuda_mc.tile_gather_planes_satd_plain(*fc))
+    # least traffic: the windows, three index arrays, the current blocks
+    # once, one int32 a lane; per 8x8 block the operations of the SATD row
+    rows["tile_gather_planes_satd"] = dict(
+        shape=f"planes[16,{Hm},{Wm}] cur[{Nb},16,16] i32 K={K} n=16",
+        max_abs_err=err,
+        ms=time_ms(lambda: cuda_mc.tile_gather_planes_satd(*fa)),
+        cold_l2_ms=time_cold_ms(
+            lambda: cuda_mc.tile_gather_planes_satd(*fa)),
+        coherent_ms=time_ms(lambda: cuda_mc.tile_gather_planes_satd(*fc)),
+        plain_ms=time_ms(
+            lambda: cuda_mc.tile_gather_planes_satd_plain(*fa), 5),
+        bytes=(min(16 * Hm * Wm, N * n * n) * 2 + 3 * N * 4
+               + Nb * n * n * 4 + N * 4),
+        ops=N * 4 * (64 + 384 + 64), library_ms=None)
 
     # --- satd: the same round's SATD -------------------------------------
     for S, N_ in ((8, 1003), (16, 1003), (32, 77)):
@@ -356,6 +524,8 @@ META = {
                     "x265_tpu/ops/pallas_mc.py:205"),
     "tile_gather_planes": ("x265_tpu_torch/csrc/tile_gather.cu",
                            "x265_tpu/ops/pallas_mc.py:275"),
+    "tile_gather_planes_satd": ("x265_tpu_torch/csrc/tile_gather.cu",
+                                "x265_tpu/ops/pallas_mc.py:275"),
     "satd8x8": ("x265_tpu_torch/csrc/satd.cu",
                 "x265_tpu/ops/pallas_kernels.py:58"),
     "sad_sweep": ("x265_tpu_torch/csrc/sad_sweep.cu",
@@ -365,7 +535,9 @@ META = {
 }
 
 
-OFF_PATH = ("sad_sweep",)      # entry points the encoder never calls
+# entries that return what the TPU kernel returns; the encoder calls the
+# fused entry of the same kernel instead, never these
+OFF_PATH = ("sad_sweep", "tile_gather_planes")
 
 
 def encode_and_decode(what, params, frames):
@@ -525,7 +697,9 @@ def main():
     rows = kernel_phase()
     emit("kernels", kernels=sorted(rows), tolerance="exact (integer)",
          **{k: {"kernel_ms": v["ms"], "plain_ms": v["plain_ms"],
-                "shape": v["shape"], "max_abs_err": v["max_abs_err"]}
+                "shape": v["shape"], "max_abs_err": v["max_abs_err"],
+                **{x: v[x] for x in ("library_ms", "cold_l2_ms",
+                                     "coherent_ms") if v.get(x)}}
             for k, v in rows.items()})
 
     if "--kernels-only" in sys.argv[1:]:
@@ -575,9 +749,10 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": r["library_ms"], "shape": r["shape"]}
+        for k in ("cold_l2_ms", "coherent_ms"):
+            if k in r:
+                row[k] = r[k]
         (off_path if name in OFF_PATH else table).append(row)
-    # the field entry of the SAD sweep is what the TPU kernel returns; the
-    # encoder calls the fused entry of the same kernel, never this one
     print(json.dumps({"kernels": table,
                       "entries_off_the_main_path": off_path}), flush=True)
     emit("done", total_seconds=time.time() - t_start)

@@ -25,7 +25,7 @@ def test_cuda_kernels_equal_plain_on_the_card():
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
     plane = T(rng.integers(0, 256, (3, 200, 333)).astype(np.int16)).to(dev)
-    N = 101
+    N = 111
     r = T(rng.integers(0, 3, N).astype(np.int32)).to(dev)
     oy = T(rng.integers(0, 200 - 39, N).astype(np.int32)).to(dev)
     ox = T(rng.integers(0, 333 - 39, N).astype(np.int32)).to(dev)
@@ -44,6 +44,12 @@ def test_cuda_kernels_equal_plain_on_the_card():
         cuda_mc.mc_gather_interp(plane, r, oy, ox, xf, xf, filt, 32, 8, 8),
         cuda_mc.mc_gather_interp_plain(plane, r, oy, ox, xf, xf, filt,
                                        32, 8, 8))
+    # the fused gather + SATD: 3 candidates for each of 37 blocks, the
+    # out-of-range lanes above among them (K = N / 37)
+    cur = T(rng.integers(0, 256, (37, 16, 16)).astype(np.int32)).to(dev)
+    fa = (plane, r, oy, ox, cur, 16)
+    assert torch.equal(cuda_mc.tile_gather_planes_satd(*fa),
+                       cuda_mc.tile_gather_planes_satd_plain(*fa))
     a = T(rng.integers(0, 256, (N, 16, 16)).astype(np.int32)).to(dev)
     b = T(rng.integers(0, 256, (N, 16, 16)).astype(np.int32)).to(dev)
     assert torch.equal(cuda_kernels.satd(a, b), cuda_kernels.satd_plain(a, b))

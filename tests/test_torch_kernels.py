@@ -142,10 +142,56 @@ def test_wrappers_reject_bad_arguments():
     with pytest.raises(ValueError):
         cuda_kernels.satd(torch.zeros((2, 12, 12), dtype=torch.int32),
                           torch.zeros((2, 12, 12), dtype=torch.int32))
+    # the fused gather + SATD entry
+    planes = torch.zeros((2, 64, 64), dtype=torch.int16)
+    o8 = torch.zeros(8, dtype=torch.int32)
+    cur = torch.zeros((4, 16, 16), dtype=torch.int32)
+    assert cuda_mc.tile_gather_planes_satd(planes, o8, o8, o8, cur,
+                                           16).shape == (8,)
+    with pytest.raises(TypeError):                     # cur must be int32
+        cuda_mc.tile_gather_planes_satd(planes, o8, o8, o8,
+                                        cur.to(torch.int16), 16)
+    with pytest.raises(TypeError):                     # planes must be int16
+        cuda_mc.tile_gather_planes_satd(planes.to(torch.int32), o8, o8, o8,
+                                        cur, 16)
+    with pytest.raises(ValueError):                    # 8 lanes, 3 blocks
+        cuda_mc.tile_gather_planes_satd(planes, o8, o8, o8, cur[:3], 16)
+    with pytest.raises(ValueError):                    # S not a multiple of 8
+        cuda_mc.tile_gather_planes_satd(
+            planes, o8, o8, o8, torch.zeros((4, 12, 12), dtype=torch.int32),
+            12)
+    with pytest.raises(ValueError):                    # blocks are not S x S
+        cuda_mc.tile_gather_planes_satd(planes, o8, o8, o8, cur, 8)
+    with pytest.raises(ValueError):                    # lanes but no block
+        cuda_mc.tile_gather_planes_satd(planes, o8, o8, o8, cur[:0], 16)
+
+
+@pytest.mark.parametrize("n,taken", [(30, True), (64, True), (78, True),
+                                     (79, False), (100, False)])
+def test_gather_wrappers_take_the_tile_sizes_the_kernels_take(n, taken):
+    """Powers of two up to 64, and any other size up to the largest search
+    patch (64 + 2*7): the same answer on every device, so a size the
+    kernels refuse is refused for CPU tensors too."""
+    rng = np.random.default_rng(n)
+    planes = T(rng.integers(0, 256, (2, 120, 130)).astype(np.int16))
+    r = T(np.array([1, 0, 5], np.int32))
+    oy = T(np.array([0, 120 - n, 1 << 20], np.int32))
+    ox = T(np.array([130 - n, 3, -4], np.int32))
+    if not taken:
+        with pytest.raises(ValueError):
+            cuda_mc.tile_gather(planes[0], oy, ox, n)
+        with pytest.raises(ValueError):
+            cuda_mc.tile_gather_planes(planes, r, oy, ox, n)
+        return
+    assert torch.equal(cuda_mc.tile_gather(planes[0], oy, ox, n),
+                       cuda_mc.tile_gather_plain(planes[0], oy, ox, n))
+    assert torch.equal(cuda_mc.tile_gather_planes(planes, r, oy, ox, n),
+                       cuda_mc.tile_gather_planes_plain(planes, r, oy, ox, n))
 
 
 @pytest.mark.parametrize("mod,name", [
     (cuda_mc, "tile_gather"), (cuda_mc, "tile_gather_planes"),
+    (cuda_mc, "tile_gather_planes_satd"),
     (cuda_mc, "mc_gather_interp"), (cuda_kernels, "satd"),
     (cuda_kernels, "sad_sweep"), (cuda_kernels, "sad_sweep_argmin")])
 def test_wrapper_reaches_plain_version_only_for_cpu_tensors(mod, name):

@@ -27,8 +27,11 @@ import chip_smoke  # noqa: E402  (exits when there is no CUDA device)
 from x265_tpu_torch.api.encoder import Encoder  # noqa: E402
 from x265_tpu_torch.utils import profiling  # noqa: E402
 
-OURS = ("mc_gather_kernel", "tile_gather_kernel", "satd8_kernel",
-        "sad_sweep_kernel")
+# name fragments of the hand-written kernels; the three tile_gather kernels
+# (n a power of two, staged, rows) count as one, the fused gather + SATD
+# under its own name
+OURS = ("mc_gather_kernel", "tile_gather_", "gather_satd_kernel",
+        "satd8_kernel", "sad_sweep_kernel")
 
 
 def main():

@@ -18,20 +18,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-__device__ __forceinline__ void had8(int32_t* v) {
-#pragma unroll
-  for (int h = 1; h < 8; h <<= 1) {
-#pragma unroll
-    for (int i = 0; i < 8; i += 2 * h) {
-#pragma unroll
-      for (int j = i; j < i + h; ++j) {
-        const int32_t a = v[j], b = v[j + h];
-        v[j] = a + b;
-        v[j + h] = a - b;
-      }
-    }
-  }
-}
+#include "had8.cuh"      // had8, had8_columns_abs_sum
 
 __global__ void satd8_kernel(const int32_t* __restrict__ a,
                              const int32_t* __restrict__ b,
@@ -58,16 +45,7 @@ __global__ void satd8_kernel(const int32_t* __restrict__ a,
       d[r * 8 + 6] = a1.z - b1.z; d[r * 8 + 7] = a1.w - b1.w;
       had8(d + r * 8);
     }
-    int32_t s = 0;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      int32_t col[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) col[r] = d[r * 8 + c];
-      had8(col);
-#pragma unroll
-      for (int r = 0; r < 8; ++r) s += col[r] < 0 ? -col[r] : col[r];
-    }
+    const int32_t s = had8_columns_abs_sum(d);
     atomicAdd(out + lane, s >> 2);       // s >= 0: >> 2 is // 4
   }
 }

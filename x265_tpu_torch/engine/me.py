@@ -9,7 +9,9 @@ refine motion.cpp:624 area) as dense frame-level computation:
   8-tap interpolation, then refinement rounds evaluate 9 candidates per
   block with batched SATD + mv cost.
 
-The window gathers (tile_gather, tile_gather_planes), the SATD and the
+The window gathers (tile_gather, tile_gather_planes), the SATD, the
+gather fused with the SATD (tile_gather_planes_satd: the subpel rounds
+score their candidates without building the candidates' blocks) and the
 dense SAD sweep with its argmin are hand-written CUDA kernels
 (ops/cuda_mc.py, ops/cuda_kernels.py); the rest is plain PyTorch. Ties
 keep the FIRST minimal candidate everywhere,
@@ -26,7 +28,8 @@ import torch
 from x265_tpu_torch.models.intra_frame import first_argmin
 from x265_tpu_torch.ops.cuda_kernels import sad_sweep_argmin
 from x265_tpu_torch.ops.cuda_kernels import satd as _satd_kernel
-from x265_tpu_torch.ops.cuda_mc import tile_gather_planes
+from x265_tpu_torch.ops.cuda_mc import (tile_gather_planes,
+                                        tile_gather_planes_satd)
 from x265_tpu_torch.ops.ref.interp import LUMA_FILTERS
 from x265_tpu_torch.utils.device import resolve_device
 
@@ -144,16 +147,31 @@ def _phase_planes(ref_pad: torch.Tensor, maxv: int = 255) -> torch.Tensor:
     return out.clamp_(0, maxv).to(torch.int16)
 
 
+def _phase_lanes(planes, fy, fx, iy, ix):
+    """[4,4,Hm,Wm] phase planes and per-lane (phase, position) as the
+    gather kernels take them: stacked planes [16,Hm,Wm] and int32 plane
+    index and origins. Each phase is clipped here, positions by the
+    kernels (dynamic_slice clamp semantics)."""
+    P1, P2, Hm, Wm = planes.shape
+    ridx = (fy.clamp(0, P1 - 1) * P2 + fx.clamp(0, P2 - 1)).to(torch.int32)
+    return (planes.reshape(P1 * P2, Hm, Wm), ridx.contiguous(),
+            iy.to(torch.int32).contiguous(), ix.to(torch.int32).contiguous())
+
+
 def _gather_phase_blocks(planes, fy, fx, iy, ix, S):
     """[N, S, S] int32 blocks from [4,4,Hm,Wm] int16 phase planes at
-    per-lane (phase, position); each phase is clipped here, positions
-    by the gather (dynamic_slice clamp semantics)."""
-    P1, P2, Hm, Wm = planes.shape
-    flat = planes.reshape(P1 * P2, Hm, Wm)
-    ridx = (fy.clamp(0, P1 - 1) * P2 + fx.clamp(0, P2 - 1)).to(torch.int32)
-    return tile_gather_planes(flat, ridx.contiguous(),
-                              iy.to(torch.int32).contiguous(),
-                              ix.to(torch.int32).contiguous(), S)
+    per-lane (phase, position)."""
+    return tile_gather_planes(*_phase_lanes(planes, fy, fx, iy, ix), S)
+
+
+def _phase_satd(cur_blocks, planes, fy, fx, iy, ix, S):
+    """SATD [K*N] int32 of cur_blocks [N,S,S] against the blocks
+    _gather_phase_blocks would return for the K*N lanes (lane k*N + i
+    against block i); the blocks themselves are never built (one fused
+    kernel on a CUDA device)."""
+    return tile_gather_planes_satd(
+        *_phase_lanes(planes, fy, fx, iy, ix),
+        cur_blocks.to(torch.int32).contiguous(), S)
 
 
 def _refine(cur_blocks, planes, mv_q, offsets, lam, mvp_q, S, margin):
@@ -171,16 +189,16 @@ def _refine(cur_blocks, planes, mv_q, offsets, lam, mvp_q, S, margin):
     base = mv_q[:, :2]
     K = offsets.shape[0]
 
-    # all K offsets as ONE flattened lane batch (one kernel launch)
+    # all K offsets as ONE flattened lane batch, gathered and scored by
+    # one kernel launch
     cands = base[None, :, :] + offsets[:, None, :]          # [K,N,2]
     fx = cands[..., 0] & 3
     fy = cands[..., 1] & 3
     ix = (cands[..., 0] >> 2) + (nbx_arr * S + margin)[None, :]
     iy = (cands[..., 1] >> 2) + (nby_arr * S + margin)[None, :]
-    pred = _gather_phase_blocks(planes, fy.reshape(-1), fx.reshape(-1),
-                                iy.reshape(-1), ix.reshape(-1), S)
-    cur_k = cur_blocks[None].expand(K, N, S, S).reshape(K * N, S, S)
-    satd = satd8_batched(cur_k, pred).to(torch.float32).reshape(K, N)
+    satd = _phase_satd(cur_blocks, planes, fy.reshape(-1), fx.reshape(-1),
+                       iy.reshape(-1), ix.reshape(-1), S)
+    satd = satd.to(torch.float32).reshape(K, N)
     bits = _mv_bits_t((cands - mvp_q[None]).abs()).sum(dim=2)
     costs = satd + lam * bits                      # [K,N]
     k = first_argmin(costs, 0)                     # [N]
@@ -213,13 +231,13 @@ def subpel_rounds(subme: int):
 
 
 def _eval_fixed(cur_blocks, planes, mv, bxy, S, margin):
-    """SATD of every block at its given quarter-pel MV (one gather)."""
+    """SATD of every block at its given quarter-pel MV (one fused
+    gather + SATD)."""
     fx = mv[:, 0] & 3
     fy = mv[:, 1] & 3
     ix = (mv[:, 0] >> 2) + bxy[:, 0] * S + margin
     iy = (mv[:, 1] >> 2) + bxy[:, 1] * S + margin
-    pred = _gather_phase_blocks(planes, fy, fx, iy, ix, S)
-    return satd8_batched(cur_blocks, pred)
+    return _phase_satd(cur_blocks, planes, fy, fx, iy, ix, S)
 
 
 def _edge_pad(a: torch.Tensor, p: int) -> torch.Tensor:

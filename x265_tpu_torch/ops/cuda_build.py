@@ -21,6 +21,7 @@ _CSRC = os.path.normpath(os.path.join(_DIR, "..", "csrc"))
 _BUILD = os.path.normpath(os.path.join(_DIR, "..", "build"))
 _SO = os.path.join(_BUILD, "libx265torch_kernels.so")
 SOURCES = ("mc_gather.cu", "tile_gather.cu", "satd.cu", "sad_sweep.cu")
+HEADERS = ("had8.cuh",)    # included by the sources: a change rebuilds them
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()
@@ -32,6 +33,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "x265_tile_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "x265_tile_gather_planes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "x265_tile_gather_planes_satd": [_P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _P],
     "x265_mc_gather_interp": [_P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "x265_satd8": [_P, _P, _P, _I, _I, _P],
@@ -57,7 +60,8 @@ def _needs_build() -> bool:
     if not os.path.exists(_SO):
         return True
     mt = os.path.getmtime
-    return mt(_SO) < max(mt(os.path.join(_CSRC, s)) for s in SOURCES)
+    return mt(_SO) < max(mt(os.path.join(_CSRC, s))
+                         for s in SOURCES + HEADERS)
 
 
 def _build() -> None:
