@@ -15,6 +15,7 @@ each went through every kernel. One JSON line per phase; any failure ends
 the run with a non-zero exit code and no result line.
 """
 import contextlib
+import ctypes
 import hashlib
 import json
 import subprocess
@@ -121,6 +122,43 @@ def time_cold_ms(fn, reps=10):
     return float(np.median(times[2:]))
 
 
+def calibration_phase():
+    """The yardsticks of csrc/calib.cu, measured on this card in this run:
+    the time of an empty kernel with mc_gather_interp's grid at its timed
+    shape (1,005 blocks of 256 threads, 20,608 bytes of shared memory),
+    and the rate at which the card executes vabsdiff4 with accumulate (four
+    byte differences an instruction: the SAD kernels' byte path) and the
+    scalar __sad (their int16 path), as absolute differences a second."""
+    lib = cuda_build.get_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    grid = (1005, 256, 20608)
+
+    def empty(*g):
+        cuda_build.check_launch(lib.x265_calib_empty_grid(*g, stream),
+                                "calib_empty_grid")
+    blocks = 8 * torch.cuda.get_device_properties(0).multi_processor_count
+    threads, iters = 256, 256
+    out = torch.empty(blocks * threads, dtype=torch.int32, device=DEV)
+    chains = ctypes.c_int(0)
+
+    def run_chains(kind):
+        cuda_build.check_launch(lib.x265_calib_sad_rate(
+            out.data_ptr(), kind, blocks, threads, iters,
+            ctypes.byref(chains), stream), "calib_sad_rate")
+    rate = {}
+    for kind in (4, 1):
+        ms = time_ms(lambda: run_chains(kind), 3)
+        rate[kind] = blocks * threads * iters * chains.value * kind / (
+            ms * 1e-3)
+    cal = {"empty_grid": list(grid),
+           "empty_grid_ms": time_ms(lambda: empty(*grid)),
+           "empty_one_block_ms": time_ms(lambda: empty(1, 32, 0)),
+           "sad4_differences_per_s": rate[4],
+           "sad_differences_per_s": rate[1]}
+    emit("calibration", **cal)
+    return cal
+
+
 def slice_params(w, h):
     p = param_default_preset("ultrafast", "zerolatency")
     for k, v in (("qp", "30"), ("scenecut", "0"), ("ref", "1")):
@@ -147,23 +185,30 @@ def plain_versions():
     package itself has no such switch."""
     saved = (inter_residual.tile_gather, inter_residual.mc_gather_interp,
              me.tile_gather_planes, me.tile_gather_planes_satd,
-             me._satd_kernel, me.sad_sweep_argmin)
+             me._satd_kernel, me.sad_sweep_argmin, me.sad_local_argmin)
     inter_residual.tile_gather = cuda_mc.tile_gather_plain
     inter_residual.mc_gather_interp = cuda_mc.mc_gather_interp_plain
     me.tile_gather_planes = cuda_mc.tile_gather_planes_plain
     me.tile_gather_planes_satd = cuda_mc.tile_gather_planes_satd_plain
     me._satd_kernel = cuda_kernels.satd_plain
     me.sad_sweep_argmin = cuda_kernels.sad_sweep_argmin_plain
+    me.sad_local_argmin = cuda_kernels.sad_local_argmin_plain
     try:
         yield
     finally:
         (inter_residual.tile_gather, inter_residual.mc_gather_interp,
          me.tile_gather_planes, me.tile_gather_planes_satd,
-         me._satd_kernel, me.sad_sweep_argmin) = saved
+         me._satd_kernel, me.sad_sweep_argmin,
+         me.sad_local_argmin) = saved
+
+
+def to_dev(a):
+    """A numpy integer array as a contiguous int32 tensor on the card."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(DEV)
 
 
 def rnd_i32(rng, lo, hi, n):
-    return torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32)).to(DEV)
+    return to_dev(rng.integers(lo, hi, n))
 
 
 # ------------------------------------------------------------- kernel cases
@@ -276,17 +321,153 @@ def coherent_lanes(rng, R):
     Nb = 68 * 120
     by, bx = np.divmod(np.arange(Nb), 120)
     mv = (rng.integers(-3, 4, (Nb, 2)) + np.array([9, -6])).astype(np.int64)
-
-    def t32(a):
-        return torch.from_numpy(
-            np.ascontiguousarray(a, dtype=np.int32)).to(DEV)
-    patch = (t32(by * 16 + (mv[:, 1] >> 2) + R - 7),
-             t32(bx * 16 + (mv[:, 0] >> 2) + R - 7))
+    patch = (to_dev(by * 16 + (mv[:, 1] >> 2) + R - 7),
+             to_dev(bx * 16 + (mv[:, 0] >> 2) + R - 7))
     cand = mv[None] * 4 + me._HALF_OFFS.astype(np.int64)[:, None]  # [9,Nb,2]
-    subpel = (t32(((cand[..., 1] & 3) * 4 + (cand[..., 0] & 3)).ravel()),
-              t32(((cand[..., 1] >> 2) + by * 16 + R + 2).ravel()),
-              t32(((cand[..., 0] >> 2) + bx * 16 + R + 2).ravel()))
+    subpel = (to_dev(((cand[..., 1] & 3) * 4 + (cand[..., 0] & 3)).ravel()),
+              to_dev(((cand[..., 1] >> 2) + by * 16 + R + 2).ravel()),
+              to_dev(((cand[..., 0] >> 2) + bx * 16 + R + 2).ravel()))
     return patch, subpel
+
+
+def check_local(name, args):
+    """sad_local_argmin against its plain version: index and cost exact."""
+    gd, gc = cuda_kernels.sad_local_argmin(*args)
+    wd, wc = cuda_kernels.sad_local_argmin_plain(*args)
+    err = check_equal(f"sad_local_argmin idx {name}", gd, wd)
+    if not torch.equal(gc, wc):
+        fail(f"sad_local_argmin cost {name}: kernel differs from plain")
+    return gd, err
+
+
+def local_args(rng, ref, y0s, x0s, centers, S, W_r, lam=2.8284, maxv=255,
+               flat=False):
+    """Arguments of the window search: every current block is the patch's
+    content at displacement (W_r + 1, W_r - 2) plus noise (flat: the
+    constant 99), so minima are interior and near-ties are common."""
+    hp, wp = ref.shape
+    side = S + 2 * W_r
+    N = y0s.shape[0]
+    if flat:
+        cur = torch.full((N, S, S), 99, dtype=torch.int32, device=DEV)
+    else:
+        cy = y0s.clamp(0, hp - side) + min(W_r + 1, 2 * W_r)
+        cx = x0s.clamp(0, wp - side) + max(W_r - 2, 0)
+        noise = rnd_i32(rng, -2, 3, N * S * S).reshape(N, S, S)
+        cur = (cuda_mc.tile_gather_plain(ref, cy, cx, S) + noise).clamp_(
+            0, maxv).contiguous()
+    return (cur, ref, y0s, x0s, centers,
+            torch.tensor(lam, dtype=torch.float32, device=DEV), S, W_r)
+
+
+def local_edge_cases(rng):
+    """The window entry on every S and a smaller window, one block and a
+    ragged count, origins far outside (clipped), odd and even pitch, a
+    crop of a larger plane, flat content with and without an mv cost,
+    8-bit samples at 255 and 10-bit samples at 1023."""
+    for S, W_r, N, maxv, hp, wp in (
+            (8, 7, 1003, 255, 200, 333), (16, 7, 1003, 255, 200, 334),
+            (32, 7, 77, 255, 200, 333), (64, 7, 37, 255, 200, 334),
+            (16, 3, 1003, 255, 120, 131), (8, 0, 64, 255, 64, 70),
+            (16, 7, 1, 255, 64, 64), (16, 7, 1003, 1023, 200, 333),
+            (32, 2, 77, 1023, 200, 334)):
+        side = S + 2 * W_r
+        ref = edge_planes(rng, 1, hp, wp, maxv, wp & 3)[0]
+        ref[:side, :side] = maxv                   # samples at the maximum
+        y0s = rnd_i32(rng, 0, hp - side + 1, N)
+        x0s = rnd_i32(rng, 0, wp - side + 1, N)
+        m = min(N, 10)
+        y0s[:m] = torch.tensor(([0, hp - side, 0, hp - side] + FAR
+                                + [1, 2])[:m], device=DEV)
+        x0s[:m] = torch.tensor(([0, wp - side, wp - side, 0] + FAR[::-1]
+                                + [1, 2])[:m], device=DEV)
+        centers = rnd_i32(rng, -50, 51, 2 * N).reshape(N, 2)
+        what = f"edge S={S} W_r={W_r} N={N} max={maxv}"
+        check_local(what, local_args(rng, ref, y0s, x0s, centers, S, W_r,
+                                     maxv=maxv))
+        check_local(what + " flat", local_args(rng, ref.fill_(99), y0s, x0s,
+                                               centers, S, W_r, flat=True))
+        gd, _ = check_local(what + " flat lam=0", local_args(
+            rng, ref, y0s, x0s, centers, S, W_r, lam=0.0, flat=True))
+        if int(gd.abs().max()) != 0:
+            fail(f"sad_local_argmin {what}: first displacement must win")
+    # a crop of a larger plane, as the encoder's reference is; what lies
+    # around the crop is above 255 and must not be read as a sample
+    big = edge_planes(rng, 1, 160, 212, 255, 1)[0]
+    ref = big[6:-6, 6:-6]
+    keep = ref.clone()
+    big.fill_(1023)
+    ref.copy_(keep)
+    N, S, W_r = 513, 16, 7
+    y0s = rnd_i32(rng, 0, ref.shape[0] - 29, N)
+    x0s = rnd_i32(rng, 0, ref.shape[1] - 29, N)
+    y0s[:4] = torch.tensor([0, ref.shape[0] - 30, 0, 1 << 20], device=DEV)
+    x0s[:4] = torch.tensor([0, ref.shape[1] - 30, 1 << 20, 0], device=DEV)
+    centers = rnd_i32(rng, -50, 51, 2 * N).reshape(N, 2)
+    check_local("crop", local_args(rng, ref, y0s, x0s, centers, S, W_r))
+
+
+def local_main_case(rng):
+    """Main-path shape: the 8,160 16x16 blocks of a 1080p frame, +-7
+    around centres clamped to +-(R - 7), R = 57. The reference is what
+    the encoder passes: a crop, 6 samples in on every side, of a plane
+    padded by R + 6 (row pitch 2,046, the crop's first sample off the
+    16-byte grid)."""
+    S, W_r, R = 16, 7, 57
+    nby, nbx = 68, 120
+    N = nby * nbx
+    Hr, Wr = nby * S + 2 * R, nbx * S + 2 * R
+    by, bx = np.divmod(np.arange(N), nbx)
+    lim = R - W_r
+
+    def cropped_plane(maxv):
+        big = torch.from_numpy(rng.integers(
+            0, maxv + 1, (Hr + 12, Wr + 12)).astype(np.int16)).to(DEV)
+        return big[6:-6, 6:-6]
+
+    def args_for(ref, mv, maxv=255):
+        mv = np.clip(mv, -lim, lim)
+        return local_args(rng, ref, to_dev(by * S + mv[:, 1] + R - W_r),
+                          to_dev(bx * S + mv[:, 0] + R - W_r), to_dev(mv),
+                          S, W_r, maxv=maxv)
+    ref = cropped_plane(255)
+    rnd = rng.integers(-lim, lim + 1, (N, 2))
+    rnd[:4] = [[-lim, -lim], [lim, lim], [-lim, lim], [lim, -lim]]
+    a = args_for(ref, rnd)
+    c = args_for(ref, rng.integers(-3, 4, (N, 2)) + np.array([9, -6]))
+    w = args_for(cropped_plane(1023), rnd, maxv=1023)   # the int16 path
+    _, err = check_local("main path, random centres", a)
+    check_local("main path, coherent centres", c)
+    check_local("main path, 10-bit samples", w)
+    # me._local_search on the card is this one launch and nothing else
+    cuda_mc.reset_launches()
+    mv, _ = me._local_search(a[0], ref, a[4], to_dev(np.stack([bx, by], 1)),
+                             a[5], S, W_r, R)
+    wd, _ = cuda_kernels.sad_local_argmin_plain(*a)
+    n = 2 * W_r + 1
+    check_equal("me._local_search", mv - a[4], torch.stack(
+        [wd % n - W_r, torch.div(wd, n, rounding_mode="floor") - W_r], -1))
+    if cuda_mc.launches != {**{k: 0 for k in cuda_mc.launches},
+                            "sad_local_argmin": 1}:
+        fail("me._local_search launched other than the window entry, once: "
+             f"{cuda_mc.launches}")
+    side = S + 2 * W_r
+    return dict(
+        shape=(f"cur[{N},16,16] i32 ref_pad[{Hr},{Wr}] i16 (a crop, "
+               f"pitch {Wr + 12}) W_r=7"),
+        max_abs_err=err,
+        ms=time_ms(lambda: cuda_kernels.sad_local_argmin(*a)),
+        cold_l2_ms=time_cold_ms(lambda: cuda_kernels.sad_local_argmin(*a)),
+        coherent_ms=time_ms(lambda: cuda_kernels.sad_local_argmin(*c)),
+        wide_ms=time_ms(lambda: cuda_kernels.sad_local_argmin(*w)),
+        diffs=n * n * N * S * S,
+        plain_ms=time_ms(
+            lambda: cuda_kernels.sad_local_argmin_plain(*a), 3),
+        # least traffic: the plane (smaller than the windows), the current
+        # blocks, origins and centres, two values out a block
+        bytes=(min(Hr * Wr, N * side * side) * 2 + N * S * S * 4
+               + 4 * N * 4 + N * 8),
+        ops=3 * n * n * N * S * S + 2 * n * n * N, library_ms=None)
 
 
 def kernel_phase():
@@ -334,9 +515,23 @@ def kernel_phase():
     err = check_equal("mc_gather_interp",
                       cuda_mc.mc_gather_interp(planes_y, *a),
                       cuda_mc.mc_gather_interp_plain(planes_y, *a))
+    # the same lanes as the encoder orders them: blocks in raster order
+    # around a smooth quarter-pel field (plane padded by 80)
+    by, bx = np.divmod(np.arange(N), W // 16)
+    mvq = rng.integers(-6, 7, (N, 2)) + np.array([37, -22])
+    ac = (ridx, to_dev(by * 16 + 80 + (mvq[:, 1] >> 2) - 3),
+          to_dev(bx * 16 + 80 + (mvq[:, 0] >> 2) - 3), to_dev(mvq[:, 0] & 3),
+          to_dev(mvq[:, 1] & 3), luma, n, taps, 8)
+    check_equal("mc_gather_interp, coherent lanes",
+                cuda_mc.mc_gather_interp(planes_y, *ac),
+                cuda_mc.mc_gather_interp_plain(planes_y, *ac))
     rows["mc_gather_interp"] = dict(
         shape=f"planes[2,{Hp},{Wp}] N={N} n=16 taps=8", max_abs_err=err,
         ms=time_ms(lambda: cuda_mc.mc_gather_interp(planes_y, *a)),
+        cold_l2_ms=time_cold_ms(
+            lambda: cuda_mc.mc_gather_interp(planes_y, *a)),
+        coherent_ms=time_ms(
+            lambda: cuda_mc.mc_gather_interp(planes_y, *ac)),
         plain_ms=time_ms(
             lambda: cuda_mc.mc_gather_interp_plain(planes_y, *a), 5),
         bytes=nbytes, ops=nops, library_ms=None)
@@ -447,7 +642,7 @@ def kernel_phase():
         library_ms=None)
 
     # --- sad_sweep / sad_sweep_argmin: the dense integer search ----------
-    def sweep_case(name, h, w, S, R, flat=False, zero_cost=False):
+    def sweep_case(name, h, w, S, R, flat=False, zero_cost=False, maxv=255):
         n = 2 * R + 1
         if flat:
             cur = torch.full((h, w), 99, dtype=torch.int16, device=DEV)
@@ -455,13 +650,13 @@ def kernel_phase():
                              device=DEV)
         else:
             ref = torch.from_numpy(rng.integers(
-                0, 256, (h + 2 * R, w + 2 * R)).astype(np.int16)).to(DEV)
+                0, maxv + 1, (h + 2 * R, w + 2 * R)).astype(np.int16)).to(DEV)
             # the current plane is the reference moved by (1, -2) plus
             # noise, so minima are interior and near-ties are common
             noise = torch.from_numpy(
                 rng.integers(-2, 3, (h, w)).astype(np.int16)).to(DEV)
             cur = (ref[R + 1:R + 1 + h, R - 2:R - 2 + w] + noise).clamp_(
-                0, 255).contiguous()
+                0, maxv).contiguous()
         dys, dxs = np.mgrid[-R:R + 1, -R:R + 1]
         mvc = np.float32(2.8284) * (me._mv_bits(4 * dxs.ravel())
                                     + me._mv_bits(4 * dys.ravel()))
@@ -495,6 +690,8 @@ def kernel_phase():
     # main-path shape: the HME level of a 1080p P frame
     h, w, S, R = 544, 960, 8, 29
     cur, ref, mvc, n, e1, e2 = sweep_case("HME 544x960", h, w, S, R)
+    cur_w, ref_w = sweep_case("HME 544x960, 10-bit samples", h, w, S, R,
+                              maxv=1023)[:2]            # the int16 path
     nb = (h // S) * (w // S)
     planes_bytes = (cur.numel() + ref.numel()) * 2
     # per absolute difference: a subtract, an absolute value, an add
@@ -505,15 +702,26 @@ def kernel_phase():
         ms=time_ms(lambda: cuda_kernels.sad_sweep(cur, ref, S, R), 5),
         plain_ms=time_ms(
             lambda: cuda_kernels.sad_sweep_plain(cur, ref, S, R), 2),
+        wide_ms=time_ms(lambda: cuda_kernels.sad_sweep(cur_w, ref_w, S, R), 5),
+        diffs=n * n * h * w,
         bytes=planes_bytes + n * n * nb * 4, ops=sweep_ops, library_ms=None)
     rows["sad_sweep_argmin"] = dict(
         shape=shape + f" mvcost[{n * n}] f32", max_abs_err=e2,
         ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R),
                    10),
+        cold_l2_ms=time_cold_ms(
+            lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R)),
+        wide_ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin(
+            cur_w, ref_w, mvc, S, R), 10),
+        diffs=n * n * h * w,
         plain_ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin_plain(
             cur, ref, mvc, S, R), 2),
         bytes=planes_bytes + n * n * 4 + nb * 8,
         ops=sweep_ops + 2 * n * n * nb, library_ms=None)
+
+    # --- sad_local_argmin: the window search around the HME centres ------
+    local_edge_cases(rng)
+    rows["sad_local_argmin"] = local_main_case(rng)
     return rows
 
 
@@ -531,6 +739,8 @@ META = {
     "sad_sweep": ("x265_tpu_torch/csrc/sad_sweep.cu",
                   "x265_tpu/ops/pallas_kernels.py:127"),
     "sad_sweep_argmin": ("x265_tpu_torch/csrc/sad_sweep.cu",
+                         "x265_tpu/ops/pallas_kernels.py:127"),
+    "sad_local_argmin": ("x265_tpu_torch/csrc/sad_sweep.cu",
                          "x265_tpu/ops/pallas_kernels.py:127"),
 }
 
@@ -693,13 +903,15 @@ def main():
          ptxas=[l for l in cuda_build.build_log.splitlines()
                 if "registers" in l or "spill" in l])
 
-    # ---- kernels against their plain versions, on the card
+    # ---- the card's yardsticks, then the kernels against their plain
+    # versions, on the card
+    cal = calibration_phase()
     rows = kernel_phase()
     emit("kernels", kernels=sorted(rows), tolerance="exact (integer)",
          **{k: {"kernel_ms": v["ms"], "plain_ms": v["plain_ms"],
                 "shape": v["shape"], "max_abs_err": v["max_abs_err"],
                 **{x: v[x] for x in ("library_ms", "cold_l2_ms",
-                                     "coherent_ms") if v.get(x)}}
+                                     "coherent_ms", "wide_ms") if v.get(x)}}
             for k, v in rows.items()})
 
     if "--kernels-only" in sys.argv[1:]:
@@ -749,12 +961,24 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": r["library_ms"], "shape": r["shape"]}
-        for k in ("cold_l2_ms", "coherent_ms"):
+        for k in ("cold_l2_ms", "coherent_ms", "wide_ms"):
             if k in r:
                 row[k] = r[k]
+        if "diffs" in r:
+            # bound_ms charges an absolute difference three operations at
+            # the data sheet's scalar rate, more than the card needs for
+            # one. These two charge it the instruction the kernel's path
+            # runs on, at the rate this card ran it just now: a quarter
+            # of a vabsdiff4 for samples that fit a byte (`ms`), one __sad
+            # otherwise (`wide_ms`); or the bytes, if they take longer.
+            row["bound_sad4_ms"] = max(
+                t_bytes, r["diffs"] / cal["sad4_differences_per_s"] * 1e3)
+            row["wide_bound_sad_ms"] = max(
+                t_bytes, r["diffs"] / cal["sad_differences_per_s"] * 1e3)
         (off_path if name in OFF_PATH else table).append(row)
     print(json.dumps({"kernels": table,
-                      "entries_off_the_main_path": off_path}), flush=True)
+                      "entries_off_the_main_path": off_path,
+                      "calibration": cal}), flush=True)
     emit("done", total_seconds=time.time() - t_start)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,8 +46,8 @@ def test_cuda_kernels_equal_plain_on_the_card():
                                        32, 8, 8))
     # the fused gather + SATD: 3 candidates for each of 37 blocks, the
     # out-of-range lanes above among them (K = N / 37)
-    cur = T(rng.integers(0, 256, (37, 16, 16)).astype(np.int32)).to(dev)
-    fa = (plane, r, oy, ox, cur, 16)
+    cur37 = T(rng.integers(0, 256, (37, 16, 16)).astype(np.int32)).to(dev)
+    fa = (plane, r, oy, ox, cur37, 16)
     assert torch.equal(cuda_mc.tile_gather_planes_satd(*fa),
                        cuda_mc.tile_gather_planes_satd_plain(*fa))
     a = T(rng.integers(0, 256, (N, 16, 16)).astype(np.int32)).to(dev)
@@ -63,5 +63,97 @@ def test_cuda_kernels_equal_plain_on_the_card():
             cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R),
             cuda_kernels.sad_sweep_argmin_plain(cur, ref, mvc, S, R)):
         assert torch.equal(got, want)
+    # the window search: 37 blocks around origins that are clipped too
+    la = (cur37, plane[1].contiguous(), oy[:37].contiguous(),
+          ox[:37].contiguous(), torch.stack([xf[:37] - 9, 5 - xf[:37]], 1),
+          torch.tensor(2.5, device=dev), 16, 7)
+    for got, want in zip(cuda_kernels.sad_local_argmin(*la),
+                         cuda_kernels.sad_local_argmin_plain(*la)):
+        assert torch.equal(got, want)
     for k in before:
         assert cuda_mc.launches[k] == before[k] + 1
+
+
+def _dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,w_r,maxv", [(8, 7, 255), (16, 7, 255),
+                                        (32, 7, 255), (64, 7, 255),
+                                        (16, 3, 1023), (8, 0, 255)])
+def test_window_search_equals_plain_on_the_card(S, w_r, maxv):
+    """Both sample widths of the kernel (bytes up to 255, int16 above),
+    every block size, clipped origins, a crop as the reference, flat
+    content with lam = 0 (d = 0 must win)."""
+    dev = _dev()
+    rng = np.random.default_rng(S + w_r)
+    side = S + 2 * w_r
+    big = T(rng.integers(0, maxv + 1, (3 * side + 12, 4 * side + 13))
+            .astype(np.int16)).to(dev)
+    ref = big[6:-6, 6:-6]
+    Hp, Wp = ref.shape
+    N = 203
+    y0s = T(rng.integers(0, Hp - side + 1, N).astype(np.int32)).to(dev)
+    x0s = T(rng.integers(0, Wp - side + 1, N).astype(np.int32)).to(dev)
+    y0s[:4] = torch.tensor([1 << 20, -(1 << 20), -1, Hp - side], device=dev)
+    x0s[:4] = torch.tensor([-7, 1 << 20, Wp - side, 0], device=dev)
+    centers = T(rng.integers(-50, 51, (N, 2)).astype(np.int32)).to(dev)
+    from x265_tpu_torch.ops.cuda_mc import tile_gather_plain
+    cur = (tile_gather_plain(ref, y0s.clamp(0, Hp - side) + w_r,
+                             x0s.clamp(0, Wp - side) + w_r, S)
+           + T(rng.integers(-2, 3, (N, S, S)).astype(np.int32)).to(dev)
+           ).clamp_(0, maxv).contiguous()
+    for lam, c, r in ((2.8284, cur, ref), (0.0, torch.full_like(cur, 9),
+                                           torch.full_like(ref, 9))):
+        a = (c, r, y0s, x0s, centers, torch.tensor(lam, device=dev), S, w_r)
+        gd, gc = cuda_kernels.sad_local_argmin(*a)
+        wd, wc = cuda_kernels.sad_local_argmin_plain(*a)
+        assert torch.equal(gd, wd) and torch.equal(gc, wc)
+    assert not gd.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,taps", [(4, 4), (8, 4), (16, 4), (32, 4),
+                                    (8, 8), (16, 8), (32, 8), (64, 8)])
+def test_mc_gather_every_size_equals_plain_on_the_card(n, taps):
+    dev = _dev()
+    from x265_tpu_torch.models.inter_residual import _CHROMA_FILT
+    rng = np.random.default_rng(n + taps)
+    side = n + taps - 1
+    buf = T(rng.integers(0, 256, 2 * 150 * 161 + 8).astype(np.int16)).to(dev)
+    planes = buf[3:3 + 2 * 150 * 161].view(2, 150, 161)   # off the 16-byte grid
+    filt = T(_LUMA_FILT if taps == 8 else _CHROMA_FILT).to(dev)
+    N = 301
+    r = T(rng.integers(-1, 3, N).astype(np.int32)).to(dev)
+    oy = T(rng.integers(-5, 150 - side + 6, N).astype(np.int32)).to(dev)
+    ox = T(rng.integers(-5, 161 - side + 6, N).astype(np.int32)).to(dev)
+    oy[:2] = torch.tensor([1 << 20, 150 - side], device=dev)
+    ox[:2] = torch.tensor([-(1 << 20), 161 - side], device=dev)
+    ph = T(rng.integers(-1, filt.shape[0] + 1, N).astype(np.int32)).to(dev)
+    a = (planes, r, oy, ox, ph, ph.flip(0).contiguous(), filt, n, taps, 8)
+    assert torch.equal(cuda_mc.mc_gather_interp(*a),
+                       cuda_mc.mc_gather_interp_plain(*a))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,R,h,w", [(8, 29, 64, 96), (16, 16, 48, 80),
+                                     (4, 6, 28, 44), (32, 8, 96, 160),
+                                     (8, 3, 64, 104), (16, 7, 16, 16)])
+def test_sad_sweep_geometries_equal_plain_on_the_card(S, R, h, w):
+    dev = _dev()
+    rng = np.random.default_rng(S * R)
+    n = 2 * R + 1
+    for maxv in (255, 1023):
+        ref = T(rng.integers(0, maxv + 1, (h + 2 * R, w + 2 * R))
+                .astype(np.int16)).to(dev)
+        cur = ref[R + 1:R + 1 + h, R - 2:R - 2 + w].contiguous()
+        mvc = T((rng.integers(0, 40, n * n) * 0.7).astype(np.float32)).to(dev)
+        assert torch.equal(cuda_kernels.sad_sweep(cur, ref, S, R),
+                           cuda_kernels.sad_sweep_plain(cur, ref, S, R))
+        for got, want in zip(
+                cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R),
+                cuda_kernels.sad_sweep_argmin_plain(cur, ref, mvc, S, R)):
+            assert torch.equal(got, want)

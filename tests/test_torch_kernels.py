@@ -193,7 +193,8 @@ def test_gather_wrappers_take_the_tile_sizes_the_kernels_take(n, taken):
     (cuda_mc, "tile_gather"), (cuda_mc, "tile_gather_planes"),
     (cuda_mc, "tile_gather_planes_satd"),
     (cuda_mc, "mc_gather_interp"), (cuda_kernels, "satd"),
-    (cuda_kernels, "sad_sweep"), (cuda_kernels, "sad_sweep_argmin")])
+    (cuda_kernels, "sad_sweep"), (cuda_kernels, "sad_sweep_argmin"),
+    (cuda_kernels, "sad_local_argmin")])
 def test_wrapper_reaches_plain_version_only_for_cpu_tensors(mod, name):
     """The device of the tensor alone decides: no switch, no try/except."""
     import inspect
@@ -202,3 +203,68 @@ def test_wrapper_reaches_plain_version_only_for_cpu_tensors(mod, name):
     assert len(calls) == 1
     assert lines[calls[0] - 1].strip() == 'if dev.type != "cuda":'
     assert not any(l.strip().startswith(("try:", "except")) for l in lines)
+
+
+def _local_args(S=16, w_r=7, N=5, Hp=64, Wp=80):
+    return [torch.zeros((N, S, S), dtype=torch.int32),
+            torch.zeros((Hp, Wp), dtype=torch.int16),
+            torch.zeros(N, dtype=torch.int32), torch.zeros(N, dtype=torch.int32),
+            torch.zeros((N, 2), dtype=torch.int32), torch.tensor(1.5), S, w_r]
+
+
+@pytest.mark.parametrize("what,exc", [
+    ("cur int16", TypeError), ("ref int32", TypeError),
+    ("origins int64", TypeError), ("lam float64", TypeError),
+    ("lam vector", ValueError), ("centers flat", ValueError),
+    ("centers count", ValueError), ("origins count", ValueError),
+    ("blocks not S", ValueError), ("S=12", ValueError), ("S=4", ValueError),
+    ("patch above 78", ValueError), ("patch above plane", ValueError),
+    ("negative W_r", ValueError), ("ref columns strided", ValueError),
+    ("ref 3-D", ValueError)])
+def test_window_search_wrapper_rejects_bad_arguments(what, exc):
+    """Refused for CPU tensors exactly as for CUDA tensors: the checks come
+    before the device decides between kernel and plain version."""
+    a = _local_args()
+    if what == "cur int16":
+        a[0] = a[0].to(torch.int16)
+    elif what == "ref int32":
+        a[1] = a[1].to(torch.int32)
+    elif what == "origins int64":
+        a[2] = a[2].long()
+    elif what == "lam float64":
+        a[5] = a[5].double()
+    elif what == "lam vector":
+        a[5] = torch.ones(1)
+    elif what == "centers flat":
+        a[4] = a[4].reshape(-1)
+    elif what == "centers count":
+        a[4] = a[4][:3]
+    elif what == "origins count":
+        a[2], a[3] = a[2][:3], a[3][:3]
+    elif what == "blocks not S":
+        a[6] = 8
+    elif what == "S=12":
+        a[0], a[6] = torch.zeros((5, 12, 12), dtype=torch.int32), 12
+    elif what == "S=4":
+        a[0], a[6] = torch.zeros((5, 4, 4), dtype=torch.int32), 4
+    elif what == "patch above 78":
+        a = _local_args(S=64, w_r=8, Hp=100, Wp=100)
+    elif what == "patch above plane":
+        a = _local_args(S=32, w_r=7, Hp=40, Wp=80)
+    elif what == "negative W_r":
+        a[7] = -1
+    elif what == "ref columns strided":
+        a[1] = torch.zeros((80, 64), dtype=torch.int16).t()
+    elif what == "ref 3-D":
+        a[1] = a[1][None]
+    with pytest.raises(exc):
+        cuda_kernels.sad_local_argmin(*a)
+
+
+def test_window_search_wrapper_takes_what_the_kernel_takes():
+    for S, w_r in ((8, 7), (16, 7), (32, 7), (64, 7), (16, 0), (8, 35)):
+        d, c = cuda_kernels.sad_local_argmin(*_local_args(S, w_r, 3, 90, 100))
+        assert d.dtype == torch.int32 and c.dtype == torch.float32
+        assert d.shape == c.shape == (3,)
+    d, c = cuda_kernels.sad_local_argmin(*_local_args(N=0))
+    assert d.shape == c.shape == (0,)

@@ -29,9 +29,9 @@ from x265_tpu_torch.utils import profiling  # noqa: E402
 
 # name fragments of the hand-written kernels; the three tile_gather kernels
 # (n a power of two, staged, rows) count as one, the fused gather + SATD
-# under its own name
+# and the window search under their own names
 OURS = ("mc_gather_kernel", "tile_gather_", "gather_satd_kernel",
-        "satd8_kernel", "sad_sweep_kernel")
+        "satd8_kernel", "sad_sweep_kernel", "sad_local_kernel")
 
 
 def main():

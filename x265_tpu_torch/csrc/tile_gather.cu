@@ -72,6 +72,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "aligned_i16.cuh"
 #include "had8.cuh"
 
 constexpr int kGatherWarps = 8;         // warps per block of the gathers
@@ -81,20 +82,6 @@ constexpr int kSatdBlocksPerSm = 16;
 constexpr int kStageBytes = 48 * 1024;  // shared memory a block may stage
 
 #define FULL_MASK 0xffffffffu
-
-// A pointer rounded down to 16 bytes, and the int16 elements it lost.
-struct AlignedPlanes {
-  const char* p;
-  int e0;
-};
-
-__device__ __forceinline__ AlignedPlanes align_planes(const int16_t* planes) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(planes);
-  AlignedPlanes r;
-  r.p = reinterpret_cast<const char*>(a & ~static_cast<uintptr_t>(15));
-  r.e0 = static_cast<int>(a & 15) >> 1;
-  return r;
-}
 
 // Offset, in int16 elements from planes[0][0][0], of lane j's clipped n x n
 // window. ridx == nullptr: a single plane.
@@ -110,27 +97,10 @@ __device__ __forceinline__ long long window_base(
   return base;
 }
 
-__device__ __forceinline__ int32_t lo16(uint32_t w) {
-  return static_cast<int32_t>(static_cast<int16_t>(w & 0xffffu));
-}
-
-__device__ __forceinline__ int32_t hi16(uint32_t w) {
-  return static_cast<int32_t>(w) >> 16;
-}
-
 // Four consecutive int16s from element e of the aligned base, widened.
 __device__ __forceinline__ int4 load4_i16(const char* ab, long long e) {
-  const uint2* p = reinterpret_cast<const uint2*>(ab) + (e >> 2);
-  const unsigned b = static_cast<unsigned>(e) & 3u;
-  const uint2 lo = __ldg(p);
-  uint2 hi = make_uint2(0u, 0u);
-  if (b) hi = __ldg(p + 1);           // only when the four straddle a word
-  uint32_t w0 = lo.x, w1 = lo.y, w2 = hi.x;
-  if (b & 2u) { w0 = lo.y; w1 = hi.x; w2 = hi.y; }
-  const unsigned sh = (b & 1u) << 4;
-  w0 = __funnelshift_r(w0, w1, sh);
-  w1 = __funnelshift_r(w1, w2, sh);
-  return make_int4(lo16(w0), hi16(w0), lo16(w1), hi16(w1));
+  const uint2 w = load4_i16_packed(ab, e);
+  return make_int4(lo16(w.x), hi16(w.x), lo16(w.y), hi16(w.y));
 }
 
 // Eight consecutive int16s from element e of the aligned base, widened.

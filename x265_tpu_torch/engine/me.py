@@ -11,9 +11,11 @@ refine motion.cpp:624 area) as dense frame-level computation:
 
 The window gathers (tile_gather, tile_gather_planes), the SATD, the
 gather fused with the SATD (tile_gather_planes_satd: the subpel rounds
-score their candidates without building the candidates' blocks) and the
-dense SAD sweep with its argmin are hand-written CUDA kernels
-(ops/cuda_mc.py, ops/cuda_kernels.py); the rest is plain PyTorch. Ties
+score their candidates without building the candidates' blocks), the
+dense SAD sweep with its argmin (sad_sweep_argmin) and the per-block
+window search around the HME centres (sad_local_argmin) are hand-written
+CUDA kernels (ops/cuda_mc.py, ops/cuda_kernels.py); the rest is plain
+PyTorch. Ties
 keep the FIRST minimal candidate everywhere,
 as the scans and argmins of the JAX package do.
 
@@ -26,7 +28,9 @@ import numpy as np
 import torch
 
 from x265_tpu_torch.models.intra_frame import first_argmin
-from x265_tpu_torch.ops.cuda_kernels import sad_sweep_argmin
+from x265_tpu_torch.ops.cuda_kernels import mv_bits_t as _mv_bits_t
+from x265_tpu_torch.ops.cuda_kernels import (sad_local_argmin,
+                                             sad_sweep_argmin)
 from x265_tpu_torch.ops.cuda_kernels import satd as _satd_kernel
 from x265_tpu_torch.ops.cuda_mc import (tile_gather_planes,
                                         tile_gather_planes_satd)
@@ -38,18 +42,6 @@ def _mv_bits(v: np.ndarray) -> np.ndarray:
     """~exp-Golomb bit count of a quarter-pel mv component."""
     a = np.abs(v).astype(np.int64)
     return (2 * np.floor(np.log2(2 * a + 1)) + 1).astype(np.float32)
-
-
-def _mv_bits_t(a: torch.Tensor) -> torch.Tensor:
-    """_mv_bits for a non-negative integer tensor, by integer bit length:
-    2*floor(log2(2a+1)) + 1 with floor(log2(x)) counted as the number of
-    thresholds 2^k <= x (exact; equal to the float form, proven by test
-    over the whole mv range). Returns float32."""
-    x = 2 * a.to(torch.int32) + 1
-    lg = torch.zeros_like(x)
-    for k in range(1, 24):
-        lg += (x >= (1 << k)).to(torch.int32)
-    return (2 * lg + 1).to(torch.float32)
 
 
 def satd8_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -76,40 +68,27 @@ def _local_search(cur_blocks, ref_pad, centers, bxy, lam, S, W_r, pad):
     indices. Evaluates all (2W_r+1)^2 displacements around each center
     (the x265 refineMV/star-refine analog, motion.cpp:624) in dy-major,
     dx-minor order, keeping the first minimum -> (mv [N,2], cost [N]).
+    The search patches, the SADs, the mv cost and the argmin are one
+    kernel on a CUDA device (ops.cuda_kernels.sad_local_argmin); here only
+    the origins and the index-to-mv arithmetic are left.
     """
-    from x265_tpu_torch.models.inter_residual import gather_src_blocks
-    N = cur_blocks.shape[0]
-    dev = cur_blocks.device
-    cur_blocks = cur_blocks.to(torch.int32)
-    side = S + 2 * W_r
+    def i32(t):
+        return t.to(torch.int32).contiguous()
 
-    # top-left of every search patch in padded coords; fetched as one
-    # batched tile gather
+    # top-left of every search patch in padded coords
     y0s = bxy[:, 1] * S + centers[:, 1] + pad - W_r
     x0s = bxy[:, 0] * S + centers[:, 0] + pad - W_r
-    patches = gather_src_blocks(ref_pad, y0s, x0s, side)  # [N, side, side]
+    ref_pad = ref_pad.to(torch.int16)
+    if ref_pad.stride(1) != 1:
+        ref_pad = ref_pad.contiguous()
     n = 2 * W_r + 1
-    dxs = torch.arange(n, device=dev, dtype=torch.int32) - W_r
-    bits_x = _mv_bits_t((4 * (centers[:, 0:1] + dxs[None, :])).abs())  # [N,n]
-
-    best_cost = torch.full((N,), float("inf"), dtype=torch.float32,
-                           device=dev)
-    best_d = torch.zeros((N,), dtype=torch.int64, device=dev)
-    for dy in range(n):
-        rows = patches[:, dy:dy + S, :].unfold(2, S, 1)     # [N,S,n,S]
-        sad = (cur_blocks[:, :, None, :] - rows).abs().sum(
-            dim=(1, 3), dtype=torch.int32)                  # [N,n]
-        bits_y = _mv_bits_t((4 * (centers[:, 1] + (dy - W_r))).abs())
-        bits = bits_x + bits_y[:, None]
-        cost = sad.to(torch.float32) + lam * bits
-        k = first_argmin(cost, 1)
-        c = torch.gather(cost, 1, k[:, None])[:, 0]
-        upd = c < best_cost
-        best_cost = torch.where(upd, c, best_cost)
-        best_d = torch.where(upd, dy * n + k, best_d)
+    best_d, best_cost = sad_local_argmin(
+        i32(cur_blocks), ref_pad, i32(y0s), i32(x0s), i32(centers),
+        torch.as_tensor(lam, dtype=torch.float32, device=cur_blocks.device),
+        S, W_r)
     off = torch.stack([best_d % n - W_r,
                        torch.div(best_d, n, rounding_mode="floor") - W_r],
-                      dim=-1).to(torch.int32)
+                      dim=-1)
     return centers + off, best_cost
 
 

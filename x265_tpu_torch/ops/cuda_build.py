@@ -19,9 +19,10 @@ import time
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.normpath(os.path.join(_DIR, "..", "csrc"))
 _BUILD = os.path.normpath(os.path.join(_DIR, "..", "build"))
-_SO = os.path.join(_BUILD, "libx265torch_kernels.so")
-SOURCES = ("mc_gather.cu", "tile_gather.cu", "satd.cu", "sad_sweep.cu")
-HEADERS = ("had8.cuh",)    # included by the sources: a change rebuilds them
+LIBRARY = os.path.join(_BUILD, "libx265torch_kernels.so")
+SOURCES = ("mc_gather.cu", "tile_gather.cu", "satd.cu", "sad_sweep.cu",
+           "calib.cu")
+HEADERS = ("had8.cuh", "aligned_i16.cuh")   # a change rebuilds the sources
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()
@@ -29,7 +30,7 @@ _lib = None
 build_seconds = None       # wall time of the last build in this process
 build_log = ""             # ptxas -v output of the last build
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "x265_tile_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "x265_tile_gather_planes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -40,10 +41,16 @@ _SIGNATURES = {
     "x265_satd8": [_P, _P, _P, _I, _I, _P],
     "x265_sad_sweep": [_P, _P, _P, _I, _I, _I, _I, _P],
     "x265_sad_sweep_argmin": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "x265_sad_local_argmin": [_P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _L, _P],
+    # yardsticks (csrc/calib.cu): no wrapper, nothing on the encoder's path
+    "x265_calib_empty_grid": [_I, _I, _I, _P],
+    "x265_calib_sad_rate": [_P, _I, _I, _I, _I, ctypes.POINTER(_I), _P],
 }
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """The path of nvcc (cuobjdump and the other tools sit beside it)."""
     exe = shutil.which("nvcc")
     if exe is None:
         cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
@@ -57,23 +64,23 @@ def _nvcc() -> str:
 
 
 def _needs_build() -> bool:
-    if not os.path.exists(_SO):
+    if not os.path.exists(LIBRARY):
         return True
     mt = os.path.getmtime
-    return mt(_SO) < max(mt(os.path.join(_CSRC, s))
+    return mt(LIBRARY) < max(mt(os.path.join(_CSRC, s))
                          for s in SOURCES + HEADERS)
 
 
 def _build() -> None:
     global build_seconds, build_log
     t0 = time.perf_counter()
-    nvcc = _nvcc()
+    cc = nvcc()
     os.makedirs(_BUILD, exist_ok=True)
     tag = str(os.getpid())
     procs = []
     for s in SOURCES:
         obj = os.path.join(_BUILD, f"{s}.{tag}.o")
-        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+        cmd = [cc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
                "-Xcompiler", "-fPIC", "-c", os.path.join(_CSRC, s),
                "-o", obj]
         procs.append((s, obj, subprocess.Popen(
@@ -88,15 +95,15 @@ def _build() -> None:
     build_log = "\n".join(logs)
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
-    tmp = f"{_SO}.{tag}.tmp"
-    r = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp]
+    tmp = f"{LIBRARY}.{tag}.tmp"
+    r = subprocess.run([cc, *ARCH_FLAGS, "-shared", "-o", tmp]
                        + [obj for _, obj, _ in procs],
                        capture_output=True, text=True)
     for _, obj, _ in procs:
         os.remove(obj)
     if r.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + r.stdout + r.stderr)
-    os.replace(tmp, _SO)
+    os.replace(tmp, LIBRARY)
     build_seconds = time.perf_counter() - t0
 
 
@@ -108,7 +115,7 @@ def get_lib():
             return _lib
         if _needs_build():
             _build()
-        lib = ctypes.CDLL(_SO)
+        lib = ctypes.CDLL(LIBRARY)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int

@@ -1,10 +1,14 @@
-"""SATD and the dense SAD sweep: the Hopper kernels' wrappers and their
+"""SATD and the block-SAD searches: the Hopper kernels' wrappers and their
 plain PyTorch versions.
 
 Counterpart of x265_tpu/ops/pallas_kernels.py (satd8x8_pallas /
 satd_pallas, sad_sweep_pallas); the kernels are csrc/satd.cu and
-csrc/sad_sweep.cu. On a CUDA tensor a wrapper launches its kernel or
-raises; on a CPU tensor it runs the plain version. The launch counts
+csrc/sad_sweep.cu. The sweep has three entries: sad_sweep (the field,
+what the TPU kernel returns), sad_sweep_argmin (fused with the mv cost and
+the argmin; serves engine.me._int_stage) and sad_local_argmin (a window
+and an mv cost of its own for every block; serves
+engine.me._local_search). On a CUDA tensor a wrapper launches its kernel
+or raises; on a CPU tensor it runs the plain version. The launch counts
 live with the other kernels' in ops.cuda_mc.launches.
 """
 from __future__ import annotations
@@ -183,3 +187,103 @@ def sad_sweep_argmin(cur, ref_pad, mvcost, S: int, R: int):
     cuda_build.check_launch(err, "sad_sweep_argmin")
     cuda_mc.launches["sad_sweep_argmin"] += 1
     return idx, cost
+
+
+# ------------------------------------------------- per-block window search
+
+def mv_bits_t(a: torch.Tensor) -> torch.Tensor:
+    """~exp-Golomb bit count 2*floor(log2(2a+1)) + 1 of a non-negative
+    integer tensor, by integer bit length: floor(log2(x)) counted as the
+    number of thresholds 2^k <= x (exact; equal to the float form, proven
+    by test over the whole mv range). Returns float32."""
+    x = 2 * a.to(torch.int32) + 1
+    lg = torch.zeros_like(x)
+    for k in range(1, 24):
+        lg += (x >= (1 << k)).to(torch.int32)
+    return (2 * lg + 1).to(torch.float32)
+
+
+def sad_local_argmin_plain(cur_blocks, ref_pad, y0s, x0s, centers, lam,
+                           S: int, W_r: int):
+    """The window search one row of displacements a step: the patches
+    gathered whole, then for every dy all dx at once. Inside a row the
+    first minimum wins, across rows a strict < keeps the earlier one: the
+    winner of a displacement-by-displacement scan in d order."""
+    N = cur_blocks.shape[0]
+    dev = cur_blocks.device
+    patches = cuda_mc.tile_gather_plain(ref_pad, y0s, x0s, S + 2 * W_r)
+    n = 2 * W_r + 1
+    dxs = torch.arange(n, device=dev, dtype=torch.int32) - W_r
+    bits_x = mv_bits_t((4 * (centers[:, 0:1] + dxs[None, :])).abs())  # [N,n]
+    best_cost = torch.full((N,), float("inf"), dtype=torch.float32,
+                           device=dev)
+    best_d = torch.zeros((N,), dtype=torch.int64, device=dev)
+    for dy in range(n):
+        rows = patches[:, dy:dy + S, :].unfold(2, S, 1)     # [N,S,n,S]
+        sad = (cur_blocks[:, :, None, :] - rows).abs().sum(
+            dim=(1, 3), dtype=torch.int32)                  # [N,n]
+        bits_y = mv_bits_t((4 * (centers[:, 1] + (dy - W_r))).abs())
+        bits = bits_x + bits_y[:, None]
+        cost = sad.to(torch.float32) + lam * bits
+        k = first_argmin(cost, 1)
+        c = torch.gather(cost, 1, k[:, None])[:, 0]
+        upd = c < best_cost
+        best_cost = torch.where(upd, c, best_cost)
+        best_d = torch.where(upd, dy * n + k, best_d)
+    return best_d.to(torch.int32), best_cost
+
+
+def sad_local_argmin(cur_blocks, ref_pad, y0s, x0s, centers, lam,
+                     S: int, W_r: int):
+    """Per-block window search: for block i the (S + 2*W_r)^2 patch of
+    ref_pad at (y0s[i], x0s[i]), clipped into the plane as tile_gather
+    clips, is scanned at the (2*W_r + 1)^2 displacements d = dy*n + dx for
+    the FIRST minimum of float32(sad) + lam * (bits(4*(cx+dx-W_r)) +
+    bits(4*(cy+dy-W_r))), (cx, cy) = centers[i] -> (best_d [N] int32,
+    best_cost [N] float32). Serves engine.me._local_search.
+
+    cur_blocks [N,S,S] int32 (samples that fit int16), S in (8, 16, 32,
+    64); ref_pad [Hp,Wp] int16 whose rows are contiguous (any row pitch: a
+    crop of a larger plane is taken as it is); y0s/x0s [N] int32; centers
+    [N,2] int32; lam a 0-dim float32 tensor; S + 2*W_r at most 78."""
+    cuda_mc._check(cur_blocks, "cur_blocks", torch.int32, 3)
+    dev = cur_blocks.device
+    cuda_mc._check_lanes(dev, y0s=y0s, x0s=x0s)
+    cuda_mc._check(centers, "centers", torch.int32, 2, dev)
+    cuda_mc._check(lam, "lam", torch.float32, 0, dev)
+    if not isinstance(ref_pad, torch.Tensor) or ref_pad.dtype != torch.int16:
+        raise TypeError("ref_pad: expected an int16 tensor")
+    if ref_pad.dim() != 2 or ref_pad.device != dev:
+        raise ValueError(f"ref_pad: expected 2 dims on {dev}")
+    Hp, Wp = ref_pad.shape
+    if ref_pad.stride(1) != 1 or ref_pad.stride(0) < Wp:
+        raise ValueError("ref_pad: rows must be contiguous")
+    side = S + 2 * W_r
+    if (S not in (8, 16, 32, 64) or W_r < 0 or side > Hp or side > Wp
+            or side > cuda_mc._MAX_STAGED_TILE):
+        raise ValueError(f"bad window search geometry: S={S}, W_r={W_r}, "
+                         f"ref_pad {Hp}x{Wp}")
+    N = cur_blocks.shape[0]
+    if tuple(cur_blocks.shape[1:]) != (S, S):
+        raise ValueError(f"cur_blocks is {tuple(cur_blocks.shape)}, expected "
+                         f"[N, {S}, {S}]")
+    if y0s.shape[0] != N or tuple(centers.shape) != (N, 2):
+        raise ValueError(f"y0s/x0s/centers do not match {N} blocks")
+    if dev.type != "cuda":
+        return sad_local_argmin_plain(cur_blocks, ref_pad, y0s, x0s, centers,
+                                      lam, S, W_r)
+    if cur_blocks.data_ptr() % 16:
+        raise ValueError("cur_blocks must be 16-byte aligned")
+    best_d = torch.empty((N,), dtype=torch.int32, device=dev)
+    best_cost = torch.empty((N,), dtype=torch.float32, device=dev)
+    if N:
+        lib = cuda_build.get_lib()
+        with torch.cuda.device(dev):
+            err = lib.x265_sad_local_argmin(
+                cur_blocks.data_ptr(), ref_pad.data_ptr(), y0s.data_ptr(),
+                x0s.data_ptr(), centers.data_ptr(), lam.data_ptr(),
+                best_d.data_ptr(), best_cost.data_ptr(), N, S, W_r, Hp, Wp,
+                ref_pad.stride(0), cuda_mc._stream(dev))
+        cuda_build.check_launch(err, "sad_local_argmin")
+        cuda_mc.launches["sad_local_argmin"] += 1
+    return best_d, best_cost
