@@ -6,13 +6,16 @@
 Needs one CUDA device, nvcc and g++; nothing else (no network, no JAX).
 Builds every kernel from the sources in this checkout, holds each against
 its plain PyTorch version on the card (exact equality: they are integer
-kernels), encodes small clips in both ported configurations, decodes them
-back and compares their streams with the committed golden digests, then
-drives the two main paths at 1920x1080 through Encoder.encode — the
-low-latency I/P encode (ultrafast + zerolatency) and the filtered one
-(fast + zerolatency: deblock, SAO, AQ, weightp, 3 refs) — and checks that
-each went through every kernel. One JSON line per phase; any failure ends
-the run with a non-zero exit code and no result line.
+kernels), also at the lookahead's shapes, encodes small clips, decodes
+them back and compares the streams of the golden cases with the committed
+digests, then drives the three main paths at 1920x1080 through
+Encoder.encode — the low-latency I/P encode (ultrafast + zerolatency), the
+filtered one (fast + zerolatency: deblock, SAO, AQ, weightp, 3 refs) and
+the live one (medium + zerolatency under CRF 23 and a 6000 kbps VBV
+buffer: the lookahead, scenecut, cuTree and rd 3, on a clip with a scene
+cut) — and checks that each went through every kernel. One JSON line per
+phase; any failure ends the run with a non-zero exit code and no result
+line.
 """
 import contextlib
 import ctypes
@@ -33,13 +36,14 @@ from x265_tpu_torch.api.encoder import Encoder
 from x265_tpu_torch.api import params as api_params
 from x265_tpu_torch.api.params import param_default_preset, param_parse
 from x265_tpu_torch.decoder.decoder import HEVCDecoder
-from x265_tpu_torch.engine import me
+from x265_tpu_torch.engine import lookahead, me
 from x265_tpu_torch.models import inter_residual
 from x265_tpu_torch.ops import cuda_build, cuda_kernels, cuda_mc
 from x265_tpu_torch.hevc.bitstream import split_annexb
 from x265_tpu_torch.utils import devcache, profiling, testclip
 from x265_tpu_torch.utils.convert import interp_filters
-from x265_tpu_torch.utils.testclip import make_clip, make_ramp_clip
+from x265_tpu_torch.utils.testclip import (make_clip, make_cut_clip,
+                                            make_ramp_clip)
 from x265_tpu_torch import native
 
 DEV = torch.device("cuda")
@@ -177,6 +181,18 @@ def filtered_params(w, h):
     return p
 
 
+def live_params(w, h):
+    """medium + zerolatency as a live streamer runs it: CRF 23 under a
+    6000 kbps / 6000 kbit VBV buffer, with the defaults kept: scenecut 40,
+    cu_tree, rd 3, ref 3, subme 2, hex, deblock, sao, aq-mode 2, weightp."""
+    p = param_default_preset("medium", "zerolatency")
+    for k, v in (("crf", "23"), ("vbv-maxrate", "6000"),
+                 ("vbv-bufsize", "6000")):
+        param_parse(p, k, v)
+    p.width, p.height = w, h
+    return p
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Rebind, for the duration, the names through which the engine
@@ -185,7 +201,10 @@ def plain_versions():
     package itself has no such switch."""
     saved = (inter_residual.tile_gather, inter_residual.mc_gather_interp,
              me.tile_gather_planes, me.tile_gather_planes_satd,
-             me._satd_kernel, me.sad_sweep_argmin, me.sad_local_argmin)
+             me._satd_kernel, me.sad_sweep_argmin, me.sad_local_argmin,
+             lookahead.sad_sweep_argmin)
+    # models/rdo.py and models/intra_rdo.py reach kernels 1 and 2 through
+    # inter_residual, engine/lookahead.py kernel 4 through me
     inter_residual.tile_gather = cuda_mc.tile_gather_plain
     inter_residual.mc_gather_interp = cuda_mc.mc_gather_interp_plain
     me.tile_gather_planes = cuda_mc.tile_gather_planes_plain
@@ -193,13 +212,14 @@ def plain_versions():
     me._satd_kernel = cuda_kernels.satd_plain
     me.sad_sweep_argmin = cuda_kernels.sad_sweep_argmin_plain
     me.sad_local_argmin = cuda_kernels.sad_local_argmin_plain
+    lookahead.sad_sweep_argmin = cuda_kernels.sad_sweep_argmin_plain
     try:
         yield
     finally:
         (inter_residual.tile_gather, inter_residual.mc_gather_interp,
          me.tile_gather_planes, me.tile_gather_planes_satd,
          me._satd_kernel, me.sad_sweep_argmin,
-         me.sad_local_argmin) = saved
+         me.sad_local_argmin, lookahead.sad_sweep_argmin) = saved
 
 
 def to_dev(a):
@@ -328,6 +348,45 @@ def coherent_lanes(rng, R):
               to_dev(((cand[..., 1] >> 2) + by * 16 + R + 2).ravel()),
               to_dev(((cand[..., 0] >> 2) + bx * 16 + R + 2).ravel()))
     return patch, subpel
+
+
+def adopt_lanes(rng):
+    """The merge adoption's configurations at 1080p (models/rdo.py
+    _adopt_costs): every 16x16 block of the frame under its own motion
+    and reference, then under each of four frame-dominant tuples; lanes
+    are configuration-major, blocks in raster order. Returns (x, y, mv
+    [L,2] quarter-pel, ref) as numpy arrays."""
+    nby, nbx = 68, 120
+    by, bx = np.divmod(np.arange(nby * nbx), nbx)
+    own = rng.integers(-6, 7, (nby * nbx, 2)) + np.array([37, -22])
+    tuples = ([37, -22, 0], [36, -20, 0], [0, 0, 1], [40, -24, 2])
+    mv = np.concatenate([own] + [np.tile(t[:2], (nby * nbx, 1))
+                                 for t in tuples])
+    ref = np.concatenate([rng.integers(0, 3, nby * nbx)]
+                         + [np.full(nby * nbx, t[2]) for t in tuples])
+    k = 1 + len(tuples)
+    return np.tile(bx * 16, k), np.tile(by * 16, k), mv, ref
+
+
+def promo_lanes(rng, n):
+    """The n x n promotion's one-CU lanes at 1080p: every n-aligned group
+    fully inside the picture at a group-wide motion."""
+    gy, gx = np.divmod(np.arange((H // n) * (W // n)), W // n)
+    mv = rng.integers(-6, 7, (len(gy), 2)) + np.array([37, -22])
+    return gx * n, gy * n, mv, rng.integers(0, 3, len(gy))
+
+
+def mc_lanes(x, y, mv, ref, pad, chroma):
+    """mc_gather_interp's lane arrays for blocks at luma (x, y), as
+    models/inter_residual._mc_gather forms them (chroma at half geometry,
+    the same vector in eighth-pel units)."""
+    taps, fb = (4, 3) if chroma else (8, 2)
+    if chroma:
+        x, y, pad = x >> 1, y >> 1, pad >> 1
+    mask = (1 << fb) - 1
+    return (to_dev(ref), to_dev(pad + y + (mv[:, 1] >> fb) - taps // 2 + 1),
+            to_dev(pad + x + (mv[:, 0] >> fb) - taps // 2 + 1),
+            to_dev(mv[:, 0] & mask), to_dev(mv[:, 1] & mask))
 
 
 def check_local(name, args):
@@ -536,10 +595,52 @@ def kernel_phase():
             lambda: cuda_mc.mc_gather_interp_plain(planes_y, *a), 5),
         bytes=nbytes, ops=nops, library_ms=None)
 
+    # the RD passes' shapes (models/rdo.py): the merge adoption predicts
+    # every 16x16 block under five configurations from three reference
+    # planes (luma n=16, chroma n=8); the 64x64 promotion one 64 CU per
+    # group (luma n=64, chroma n=32) and four 32 CUs (luma n=32)
+    refs_y = torch.from_numpy(
+        rng.integers(0, 256, (3, Hp, Wp)).astype(np.int16)).to(DEV)
+    refs_c = torch.from_numpy(rng.integers(
+        0, 256, (3, H // 2 + 80, W // 2 + 80)).astype(np.int16)).to(DEV)
+    ax, ay, amv, aref = adopt_lanes(rng)
+    px, py, pmv, pref = promo_lanes(rng, 64)
+    qq = np.arange(4)
+    p4 = (np.repeat(px, 4) + np.tile(qq % 2, len(px)) * 32,
+          np.repeat(py, 4) + np.tile(qq // 2, len(px)) * 32,
+          np.repeat(pmv, 4, axis=0) + rng.integers(-2, 3, (4 * len(px), 2)),
+          np.repeat(pref, 4))
+    for key, lanes, n, is_c in (
+            ("rd_adopt_luma", (ax, ay, amv, aref), 16, False),
+            ("rd_adopt_chroma", (ax, ay, amv, aref), 16, True),
+            ("rd_promote64", (px, py, pmv, pref), 64, False),
+            (None, (px, py, pmv, pref), 64, True),
+            (None, p4, 32, False)):
+        pl, filt, taps = (refs_c, chroma, 4) if is_c else (refs_y, luma, 8)
+        n_ = n // 2 if is_c else n
+        a = (*mc_lanes(*lanes, 80, is_c), filt, n_, taps, 8)
+        N_, side = len(lanes[0]), n_ + taps - 1
+        err = check_equal(f"mc_gather_interp {key or 'rd_promote'} n={n_} "
+                          f"taps={taps}", cuda_mc.mc_gather_interp(pl, *a),
+                          cuda_mc.mc_gather_interp_plain(pl, *a))
+        if key is None:
+            continue
+        rows["mc_gather_interp"][key] = dict(
+            shape=f"planes[3,{pl.shape[1]},{pl.shape[2]}] N={N_} n={n_} "
+                  f"taps={taps}", max_abs_err=err,
+            ms=time_ms(lambda: cuda_mc.mc_gather_interp(pl, *a)),
+            cold_l2_ms=time_cold_ms(lambda: cuda_mc.mc_gather_interp(pl, *a)),
+            plain_ms=time_ms(lambda: cuda_mc.mc_gather_interp_plain(pl, *a),
+                             5),
+            bytes=(gather_bytes(pl.numel(), N_, side, N_ * n_ * n_, 5)
+                   + filt.numel() * 4),
+            ops=N_ * 2 * taps * (side * n_ + n_ * n_))
+    del refs_y, refs_c
+
     # --- the two gathers and the fused gather + SATD: edge cases --------
     gather_edge_cases(rng)
 
-    # --- tile_gather: 30x30 search patches of the integer refine --------
+    # --- tile_gather: 30x30 search patches, random and coherent ---------
     R = 57
     Hr, Wr = 1088 + 2 * R, W + 2 * R
     plane = torch.from_numpy(
@@ -547,23 +648,40 @@ def kernel_phase():
     n, N = 30, 68 * 120
     oy = rnd_i32(rng, 0, Hr - n + 1, N)
     ox = rnd_i32(rng, 0, Wr - n + 1, N)
-    err = check_equal("tile_gather", cuda_mc.tile_gather(plane, oy, ox, n),
-                      cuda_mc.tile_gather_plain(plane, oy, ox, n))
-    idx = cuda_mc._window_index(oy, ox, n, Hr, Wr)
-    flat = plane.reshape(-1)
+    check_equal("tile_gather n=30", cuda_mc.tile_gather(plane, oy, ox, n),
+                cuda_mc.tile_gather_plain(plane, oy, ox, n))
     (coy, cox), co3 = coherent_lanes(rng, R)
-    check_equal("tile_gather, coherent lanes",
+    check_equal("tile_gather n=30, coherent lanes",
                 cuda_mc.tile_gather(plane, coy, cox, n),
                 cuda_mc.tile_gather_plain(plane, coy, cox, n))
-    rows["tile_gather"] = dict(
-        shape=f"plane[{Hr},{Wr}] N={N} n=30", max_abs_err=err,
-        ms=time_ms(lambda: cuda_mc.tile_gather(plane, oy, ox, n)),
-        cold_l2_ms=time_cold_ms(lambda: cuda_mc.tile_gather(plane, oy, ox, n)),
-        coherent_ms=time_ms(lambda: cuda_mc.tile_gather(plane, coy, cox, n)),
-        plain_ms=time_ms(lambda: cuda_mc.tile_gather_plain(plane, oy, ox, n)),
-        bytes=gather_bytes(Hr * Wr, N, n, N * n * n, 2), ops=0,
-        library_ms=time_ms(lambda: torch.take(flat, idx)))
-    del idx
+
+    # --- tile_gather: the merge adoption's source tiles (the largest call
+    # on the live path): every 16x16 luma / 8x8 chroma block of the source
+    # picture once per configuration, clipped at the bottom edge
+    for key, (hs, ws), n, sh in ((None, (H, W), 16, 0),
+                                 ("rd_adopt_chroma", (H // 2, W // 2), 8, 1)):
+        src = torch.from_numpy(
+            rng.integers(0, 256, (hs, ws)).astype(np.int16)).to(DEV)
+        oy, ox = to_dev(ay >> sh), to_dev(ax >> sh)
+        N = len(ay)
+        err = check_equal(f"tile_gather rd_adopt n={n}",
+                          cuda_mc.tile_gather(src, oy, ox, n),
+                          cuda_mc.tile_gather_plain(src, oy, ox, n))
+        idx = cuda_mc._window_index(oy, ox, n, hs, ws)
+        flat = src.reshape(-1)
+        row = dict(
+            shape=f"plane[{hs},{ws}] N={N} n={n}", max_abs_err=err,
+            ms=time_ms(lambda: cuda_mc.tile_gather(src, oy, ox, n)),
+            cold_l2_ms=time_cold_ms(
+                lambda: cuda_mc.tile_gather(src, oy, ox, n)),
+            plain_ms=time_ms(lambda: cuda_mc.tile_gather_plain(src, oy, ox, n)),
+            bytes=gather_bytes(hs * ws, N, n, N * n * n, 2), ops=0,
+            library_ms=time_ms(lambda: torch.take(flat, idx)))
+        del idx
+        if key is None:
+            rows["tile_gather"] = row
+        else:
+            rows["tile_gather"][key] = row
 
     # --- tile_gather_planes: one subpel refine round (9 candidates) ------
     margin = R + 2
@@ -640,6 +758,20 @@ def kernel_phase():
         plain_ms=time_ms(lambda: cuda_kernels.satd_plain(a_, b_), 5),
         bytes=2 * N * S * S * 4 + N * 4, ops=N * 4 * (64 + 384 + 64),
         library_ms=None)
+    # the lookahead's intra cost: the DC-removed 8x8 blocks of the 544x960
+    # lowres plane against zeros (negative samples)
+    nl = (544 // 8) * (960 // 8)
+    la_ = rnd_i32(rng, -128, 128, nl * 64).reshape(nl, 8, 8)
+    la_[0] = -128
+    lb_ = torch.zeros_like(la_)
+    rows["satd8x8"]["lookahead"] = dict(
+        shape=f"a[{nl},8,8] int32 in [-128, 127], b zeros",
+        max_abs_err=check_equal("satd8x8 lookahead",
+                                cuda_kernels.satd(la_, lb_),
+                                cuda_kernels.satd_plain(la_, lb_)),
+        ms=time_ms(lambda: cuda_kernels.satd(la_, lb_)),
+        plain_ms=time_ms(lambda: cuda_kernels.satd_plain(la_, lb_), 5),
+        bytes=2 * nl * 64 * 4 + nl * 4, ops=nl * (64 + 384 + 64))
 
     # --- sad_sweep / sad_sweep_argmin: the dense integer search ----------
     def sweep_case(name, h, w, S, R, flat=False, zero_cost=False, maxv=255):
@@ -719,6 +851,29 @@ def kernel_phase():
         bytes=planes_bytes + n * n * 4 + nb * 8,
         ops=sweep_ops + 2 * n * n * nb, library_ms=None)
 
+    # the lookahead's inter cost: lowres 544x960 against the previous
+    # lowres plane edge-padded by 4, S=8, no mv cost (first minimum over
+    # d = dy*9 + dx: two overlapping runs of eight dy)
+    h, w, S, R = 544, 960, 8, 4
+    sweep_case("lookahead flat, mvcost=0", 64, 96, S, R, flat=True,
+               zero_cost=True)
+    cur, ref, mvc, n, _e1, e2 = sweep_case("lookahead 544x960", h, w, S, R,
+                                           zero_cost=True)
+    nb = (h // S) * (w // S)
+    rows["sad_sweep_argmin"]["lookahead"] = dict(
+        shape=f"cur[{h},{w}] ref_pad[{h + 2 * R},{w + 2 * R}] i16 S=8 R=4 "
+              f"mvcost[{n * n}] zeros",
+        max_abs_err=e2,
+        ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R),
+                   10),
+        cold_l2_ms=time_cold_ms(
+            lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R)),
+        plain_ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin_plain(
+            cur, ref, mvc, S, R), 3),
+        diffs=n * n * h * w,
+        bytes=(cur.numel() + ref.numel()) * 2 + n * n * 4 + nb * 8,
+        ops=3 * n * n * h * w + 2 * n * n * nb)
+
     # --- sad_local_argmin: the window search around the HME centres ------
     local_edge_cases(rng)
     rows["sad_local_argmin"] = local_main_case(rng)
@@ -745,9 +900,38 @@ META = {
 }
 
 
-# entries that return what the TPU kernel returns; the encoder calls the
-# fused entry of the same kernel instead, never these
+# the entries no main path launches: those that return what the TPU
+# kernel returns (the encoder calls the fused entry of the same kernel
+# instead)
 OFF_PATH = ("sad_sweep", "tile_gather_planes")
+
+
+# the extra shapes a kernel is held and timed at, beside its main row
+SHAPES_ON_PATH = ("lookahead", "rd_adopt_luma", "rd_adopt_chroma",
+                  "rd_promote64")
+
+
+def bounds(r, cal):
+    """bound_ms: the larger of the bytes at the memory rate and the
+    operations at the data sheet's scalar rate. For an SAD sweep
+    (`diffs` absolute differences) that rate charges a difference three
+    operations, more than the card needs for one, so two more bounds
+    charge it the instruction the kernel's path runs on, at the rate this
+    card ran it in the calibration phase: a quarter of a vabsdiff4 for
+    samples that fit a byte (bound_sad4_ms, against `ms`), one __sad
+    otherwise (wide_bound_sad_ms, against `wide_ms`); or the bytes, if
+    they take longer."""
+    t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = r["ops"] / INT_OPS_PER_S * 1e3
+    b = {"bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if "diffs" in r:
+        b["bound_sad4_ms"] = max(
+            t_bytes, r["diffs"] / cal["sad4_differences_per_s"] * 1e3)
+        if "wide_ms" in r:
+            b["wide_bound_sad_ms"] = max(
+                t_bytes, r["diffs"] / cal["sad_differences_per_s"] * 1e3)
+    return b
 
 
 def encode_and_decode(what, params, frames):
@@ -828,12 +1012,11 @@ def golden_phase():
              ctus_with_other_qp=flips)
 
 
-def main_path(phase, params_fn, frames, card):
-    """One main path: 8 frames through Encoder.encode with the launch
+def main_path(phase, params_fn, frames, card, types_want, stages_want=()):
+    """One main path: the frames through Encoder.encode with the launch
     counts set to 0 just before and read just after; then the first 3
     frames again with the plain versions, which must give the same
     bytes. Returns the launch counts."""
-    filtered = phase.endswith("filtered")
     devcache.clear()
     enc = Encoder(params_fn(W, H))
     profiling.reset()
@@ -855,17 +1038,24 @@ def main_path(phase, params_fn, frames, card):
         fail(f"{phase}: stream does not start with VPS/SPS/PPS: "
              f"{nal_types}")
     types = "".join(s["type"] for s in enc.frame_stats)
-    if types != "IPPPPPPP":
-        fail(f"{phase}: frame types {types}")
+    if types != types_want:
+        fail(f"{phase}: frame types {types}, expected {types_want}")
     inter_pct = float(enc._last_analysis.inter8.astype(bool).mean())
     report = profiling.report()
     stages = {k: round(v["seconds"], 4) for k, v in report.items()}
+    for st in stages_want:
+        if not report.get(st, {}).get("calls"):
+            fail(f"{phase}: stage {st} never ran")
     extra = {}
-    if filtered:
-        for st in ("loopfilter", "sao_analyze"):
-            if not report.get(st, {}).get("calls"):
-                fail(f"{phase}: stage {st} never ran")
+    if phase == "encode_1080p_live":
+        extra = {"frame_qps": [s["qp"] for s in enc.frame_stats],
+                 "vbv_reencodes": enc.vbv_reencodes,
+                 "scenecut_frames": sorted(enc._scenecut_frames),
+                 "stage_calls": {st: report[st]["calls"]
+                                 for st in stages_want}}
+    elif phase == "encode_1080p_filtered":
         extra = check_filtered(enc, phase)
+    if phase != "encode_1080p":
         cl = enc._last_analysis.cu_log2_map
         extra["cu_size_share_last_frame"] = {
             str(1 << lg): float((cl == lg).mean()) for lg in (3, 4, 5, 6)}
@@ -878,10 +1068,11 @@ def main_path(phase, params_fn, frames, card):
             fail(f"{phase}: the plain-version run launched a kernel")
     if not stream.startswith(plain_stream):
         fail(f"{phase}: kernel stream != plain-version stream")
+    n_p = types.count("P")
     emit(phase, card=card, frames=len(frames), bytes=len(stream),
          seconds=t_enc, fps=len(frames) / t_enc, stage_seconds=stages,
          launches=launches, launches_per_p_frame={
-             k: v / 7.0 for k, v in launches.items()},
+             k: v / n_p for k, v in launches.items()},
          inter_cu_share_last_frame=inter_pct,
          kernel_stream_equals_plain_stream=True,
          bits=[s["bits"] for s in enc.frame_stats], **extra)
@@ -938,44 +1129,47 @@ def main():
     # ---- golden streams: the card against the JAX package's digests
     golden_phase()
 
-    # ---- the main paths at 1080p, 1 I + 7 P, through Encoder.encode
+    # ---- the main paths at 1080p, 8 frames each, through Encoder.encode
     launches_by_path = {}
-    for phase, params_fn, frames in (
-            ("encode_1080p", slice_params, make_clip(W, H, 8, seed=11)),
+    for phase, params_fn, frames, types, stages in (
+            ("encode_1080p", slice_params, make_clip(W, H, 8, seed=11),
+             "IPPPPPPP", ()),
             ("encode_1080p_filtered", filtered_params,
-             make_ramp_clip(W, H, 8, seed=11, step=0.05))):
-        launches_by_path[phase] = main_path(phase, params_fn, frames, card)
+             make_ramp_clip(W, H, 8, seed=11, step=0.05), "IPPPPPPP",
+             ("loopfilter", "sao_analyze")),
+            ("encode_1080p_live", live_params,
+             make_cut_clip(W, H, 8, seed=11, cut=4), "IPPPIPPP",
+             ("lookahead", "rd_adopt", "rd_promote"))):
+        launches_by_path[phase] = main_path(phase, params_fn, frames, card,
+                                            types, stages)
 
-    # ---- the kernels' table
+    # ---- the kernels' table (launches: this slice's path, the live one)
     table, off_path = [], []
-    this_path = launches_by_path["encode_1080p_filtered"]
+    this_path = launches_by_path["encode_1080p_live"]
     for name, r in rows.items():
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["ops"] / INT_OPS_PER_S * 1e3
         row = {
             "name": name, "route": "cuda", "source": META[name][0],
             "replaces": META[name][1], "launches": this_path[name],
             "launches_by_path": {k: v[name]
                                  for k, v in launches_by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "plain_ms": r["plain_ms"], **bounds(r, cal),
             "library_ms": r["library_ms"], "shape": r["shape"]}
         for k in ("cold_l2_ms", "coherent_ms", "wide_ms"):
             if k in r:
                 row[k] = r[k]
-        if "diffs" in r:
-            # bound_ms charges an absolute difference three operations at
-            # the data sheet's scalar rate, more than the card needs for
-            # one. These two charge it the instruction the kernel's path
-            # runs on, at the rate this card ran it just now: a quarter
-            # of a vabsdiff4 for samples that fit a byte (`ms`), one __sad
-            # otherwise (`wide_ms`); or the bytes, if they take longer.
-            row["bound_sad4_ms"] = max(
-                t_bytes, r["diffs"] / cal["sad4_differences_per_s"] * 1e3)
-            row["wide_bound_sad_ms"] = max(
-                t_bytes, r["diffs"] / cal["sad_differences_per_s"] * 1e3)
-        (off_path if name in OFF_PATH else table).append(row)
+        for key in SHAPES_ON_PATH:
+            if key in r:
+                # the same kernel at another shape of the path, timed and
+                # bounded as above
+                sub = r[key]
+                row[key] = {
+                    **{k: sub[k] for k in ("shape", "max_abs_err", "ms",
+                                           "plain_ms", "cold_l2_ms",
+                                           "library_ms") if k in sub},
+                    **bounds(sub, cal)}
+        (off_path if name in OFF_PATH
+         else table).append(row)
     print(json.dumps({"kernels": table,
                       "entries_off_the_main_path": off_path,
                       "calibration": cal}), flush=True)

@@ -141,7 +141,8 @@ def test_mc_gather_every_size_equals_plain_on_the_card(n, taps):
 @pytest.mark.gpu
 @pytest.mark.parametrize("S,R,h,w", [(8, 29, 64, 96), (16, 16, 48, 80),
                                      (4, 6, 28, 44), (32, 8, 96, 160),
-                                     (8, 3, 64, 104), (16, 7, 16, 16)])
+                                     (8, 3, 64, 104), (16, 7, 16, 16),
+                                     (8, 4, 544, 960)])
 def test_sad_sweep_geometries_equal_plain_on_the_card(S, R, h, w):
     dev = _dev()
     rng = np.random.default_rng(S * R)

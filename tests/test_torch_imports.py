@@ -69,14 +69,14 @@ def _params(**kw):
 
 
 @pytest.mark.parametrize("name,kw", [
-    ("bframes", dict(bframes=2)), ("CQP", dict(rc_mode=0)),
-    ("scenecut", dict(scenecut=40)),
+    ("bframes", dict(bframes=2)), ("pass_num", dict(pass_num=2)),
+    ("zones", dict(zones="0,10,q=20")),
     ("hist_scenecut", dict(hist_scenecut=True)),
-    ("cu_tree", dict(cu_tree=True, scenecut=40)),
+    ("qpfile", dict(qpfile="frames.txt")),
     ("frame_dup", dict(frame_dup=True)),
     ("intra_refresh", dict(intra_refresh=True)),
     ("scaling_lists", dict(scaling_lists=True)),
-    ("rd_level", dict(rd_level=3)), ("rdoq_level", dict(rdoq_level=1)),
+    ("rd_level", dict(rd_level=4)), ("rdoq_level", dict(rdoq_level=1)),
     ("tu_inter_depth", dict(tu_inter_depth=2)), ("tskip", dict(tskip=True)),
     ("lossless", dict(lossless=True)), ("slices", dict(slices=2)),
     ("wpp", dict(wpp=True)), ("keyint 1", dict(keyint=1)),
@@ -94,8 +94,7 @@ def test_unsupported_option_raises_naming_it(name, kw):
     dict(deblock=True, sao=True, aq_mode=2, weightp=True, cu_tree=True)],
     ids=["aq_mode", "cu_tree", "deblock", "sao", "weightp", "all"])
 def test_filter_options_are_accepted(kw):
-    """The loop filters, AQ and weightp are ported; cu_tree is taken while
-    it is inert (CQP, no scenecut: no lookahead runs)."""
+    """The loop filters, AQ, weightp and cu_tree are ported."""
     from x265_tpu_torch.api.encoder import Encoder
     enc = Encoder(_params(**kw), device="cpu")
     assert enc.pps.deblocking_filter_disabled == (not kw.get("deblock"))
@@ -103,6 +102,19 @@ def test_filter_options_are_accepted(kw):
     assert enc.pps.cu_qp_delta_enabled == bool(
         kw.get("aq_mode") or kw.get("cu_tree"))
     assert enc.sps.sao_enabled == bool(kw.get("sao"))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(rc_mode=0, bitrate=500), dict(rc_mode=2, crf=23.0),
+    dict(rc_mode=0, bitrate=500, vbv_maxrate=500, vbv_bufsize=500),
+    dict(scenecut=40), dict(cu_tree=True, scenecut=40), dict(rd_level=3)],
+    ids=["ABR", "CRF", "VBV", "scenecut", "cu_tree_lookahead", "rd_level_3"])
+def test_live_options_are_accepted(kw):
+    """Rate control other than CQP, VBV, scenecut (the lookahead), cuTree
+    with the lookahead and rd 3 are ported."""
+    from x265_tpu_torch.api.encoder import Encoder
+    enc = Encoder(_params(**kw), device="cpu")
+    assert enc.param.rd_level == kw.get("rd_level", enc.param.rd_level)
 
 
 def test_bit_depth_raises():
@@ -133,6 +145,24 @@ def test_device_none_without_cuda_raises():
     with pytest.raises(RuntimeError, match="CUDA"):
         decide_intra_frame_tpu(y, 64, 64)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_lookahead_and_rd_entry_points_default_to_cuda():
+    """The lookahead and the RD passes take device=None as CUDA too,
+    and raise before any work when there is no card."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from x265_tpu_torch.engine.lookahead import Lookahead
+    from x265_tpu_torch.models.intra_rdo import rd_intra_promote32
+    from x265_tpu_torch.models.rdo import (rd_adopt16, rd_promote,
+                                           rd_promote32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Lookahead(64, 64)
+    for fn, nargs in ((rd_promote, 9), (rd_promote32, 9), (rd_adopt16, 10),
+                      (rd_intra_promote32, 4)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(*([None] * nargs))
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -23,7 +23,8 @@ def _frame(seed, w=192, h=128):
 
 
 @pytest.mark.parametrize("S,fast,psy", [(16, True, 2.0), (16, False, 0.0),
-                                        (8, True, 0.0), (32, False, 2.0)])
+                                        (8, True, 0.0), (32, False, 2.0),
+                                        (16, False, 2.0)])
 def test_frame_intra_analysis(S, fast, psy):
     y = _frame(S)
     mj, cj = jif.frame_intra_analysis(jnp.asarray(y), S=S, fast=fast,

@@ -110,9 +110,33 @@ def frame_by_frame(enc, frames):
     return stream + enc.flush(), qp_maps
 
 
-def golden_pair(name):
-    """(port encoder, port stream, recons, JAX stream, frames) of a golden
-    case; fails when the committed entry is not the JAX package's."""
+def count_reencodes(enc):
+    """Count, in enc.vbv_reencodes, the VBV re-encodes the JAX package's
+    encoder's rate control asks for (the port's Encoder counts its own)."""
+    enc.vbv_reencodes = 0
+    orig = enc.rc.reencode_qp
+
+    def wrapped(bits):
+        rq = orig(bits)
+        enc.vbv_reencodes += rq is not None
+        return rq
+    enc.rc.reencode_qp = wrapped
+    return enc
+
+
+def recon_collector(enc):
+    """Attach a recon sink; returns a function giving the recons in display
+    order (a picture encoded again under VBV reports twice: the last
+    report is the one in the stream)."""
+    got = {}
+    enc.recon_sink = lambda idx, planes: got.__setitem__(idx, planes)
+    return lambda: [got[i] for i in sorted(got)]
+
+
+def golden_encoders(name):
+    """(port encoder, port stream, recons, JAX encoder, JAX stream,
+    frames) of a golden case; fails when the committed entry is not the
+    JAX package's. Both encoders count their VBV re-encodes."""
     from x265_tpu.api import params as JP
     from x265_tpu.api.encoder import Encoder as JEncoder
     from x265_tpu_torch.api import params as TP
@@ -120,16 +144,22 @@ def golden_pair(name):
     from x265_tpu_torch.utils import testclip
     frames = testclip.golden_clip(name)
     enc = TEncoder(testclip.golden_params(name, TP), device="cpu")
-    recons = []
-    enc.recon_sink = lambda idx, planes: recons.append(planes)
+    recons = recon_collector(enc)
     stream, qp_maps = frame_by_frame(enc, frames)
-    ref, ref_qp_maps = frame_by_frame(
-        JEncoder(testclip.golden_params(name, JP)), frames)
+    jenc = count_reencodes(JEncoder(testclip.golden_params(name, JP)))
+    ref, ref_qp_maps = frame_by_frame(jenc, frames)
     gold = testclip.golden_digests()[name]
     assert gold == {"sha256": hashlib.sha256(ref).hexdigest(),
                     "bytes": len(ref), "qp_maps": ref_qp_maps}, \
         f"golden entry of {name} is stale"
     assert qp_maps == ref_qp_maps
+    return enc, stream, recons(), jenc, ref, frames
+
+
+def golden_pair(name):
+    """(port encoder, port stream, recons, JAX stream, frames) of a golden
+    case; fails when the committed entry is not the JAX package's."""
+    enc, stream, recons, _jenc, ref, frames = golden_encoders(name)
     return enc, stream, recons, ref, frames
 
 

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Where one 1080p P frame of the PyTorch/CUDA port spends its time.
 
-    python3 tools/torch_profile_frame.py [--config ultrafast|filtered]
+    python3 tools/torch_profile_frame.py [--config ultrafast|filtered|live]
                                          [--frames 6] [--out trace.json]
 
-Needs a CUDA device. Encodes a seeded 1920x1080 clip in one of the two
-configurations chip_smoke.py drives (ultrafast + zerolatency, or the
-filtered fast + zerolatency with its brightness ramp), lets the first
-frames warm everything up, then traces the LAST P frame with
-torch.profiler and prints one JSON object: the frame's wall time, the
-device's busy time and idle share inside it, the per-stage seconds, the
-device time of the hand-written kernels, and the kernels that took most
-of the device's time. With --out it also writes the Chrome trace.
+Needs a CUDA device. Encodes a seeded 1920x1080 clip in one of the three
+configurations chip_smoke.py drives (ultrafast + zerolatency; the
+filtered fast + zerolatency with its brightness ramp; the live medium +
+zerolatency under CRF 23 and a 6000 kbps VBV buffer, on the scene-cut
+clip with the cut at frame 4, so the last frame is a P frame of the new
+scene), lets the first frames warm everything up, then traces the LAST
+P frame with torch.profiler and prints one JSON object: the frame's wall
+time, the device's busy time and idle share inside it, the per-stage
+seconds (and the lookahead's share of the wall time), the device time of
+the hand-written kernels, and the kernels that took most of the
+device's time. With --out it also writes the Chrome trace.
 """
 import argparse
 import json
@@ -36,7 +39,7 @@ OURS = ("mc_gather_kernel", "tile_gather_", "gather_satd_kernel",
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=("ultrafast", "filtered"),
+    ap.add_argument("--config", choices=("ultrafast", "filtered", "live"),
                     default="ultrafast")
     ap.add_argument("--frames", type=int, default=6)
     ap.add_argument("--out", default=None)
@@ -47,6 +50,10 @@ def main():
         frames = chip_smoke.make_ramp_clip(W, H, args.frames, seed=11,
                                            step=0.05)
         enc = Encoder(chip_smoke.filtered_params(W, H))
+    elif args.config == "live":
+        frames = chip_smoke.make_cut_clip(W, H, args.frames, seed=11,
+                                          cut=4)
+        enc = Encoder(chip_smoke.live_params(W, H))
     else:
         frames = chip_smoke.make_clip(W, H, args.frames, seed=11)
         enc = Encoder(chip_smoke.slice_params(W, H))
@@ -81,11 +88,14 @@ def main():
              and str(getattr(e, "device_type", "")).endswith("CUDA")}
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
+    stage_ms = {k: v["seconds"] * 1e3
+                for k, v in profiling.report().items()}
     out = {
         "card": card, "config": args.config, "frame_bytes": len(au),
-        "frame_wall_ms": wall * 1e3,
-        "stage_ms": {k: v["seconds"] * 1e3
-                     for k, v in profiling.report().items()},
+        "frame_type": enc.frame_stats[-1]["type"],
+        "frame_wall_ms": wall * 1e3, "stage_ms": stage_ms,
+        "lookahead_share_of_wall": stage_ms.get("lookahead", 0.0)
+        / (wall * 1e3),
     }
     if rows:
         ours = {k: sum(r[1] for r in rows if k in r[0]) for k in OURS}

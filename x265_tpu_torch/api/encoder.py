@@ -2,14 +2,17 @@
 reference source/encoder/api.cpp:76,410 and encoder.cpp:1574).
 
 Scope of the port so far: the low-latency I/P encode — IDR/CRA + P
-pictures, CQP, no B frames, no lookahead, single slice per picture,
-Annex-B output — with the in-loop filters (deblock, SAO), adaptive
-quantization and weighted prediction of the presets up to `fast`.
-Per picture: intra analysis and motion search on the device, merge
-adoption and CU promotion on the host, inter residual/recon on the
-device, CABAC in the native writer, then deblock + SAO statistics and
-the SAO apply on the device; the filtered planes stay there as the next
-pictures' reference.
+pictures, no B frames, single slice per picture, Annex-B output — under
+CQP, CRF or ABR with VBV, with the lookahead (scenecut, cuTree), the
+in-loop filters (deblock, SAO), adaptive quantization, weighted
+prediction and the rd 3 decisions of the presets up to `medium` with
+`zerolatency`. Per picture: the lowres lookahead costs, intra analysis
+and motion search on the device, merge adoption and CU promotion (batched
+RD passes on the device under rd 3, host rules below it), inter
+residual/recon on the device, CABAC in the native writer, then deblock +
+SAO statistics and the SAO apply on the device; the filtered planes stay
+there as the next pictures' reference. A picture that would underflow
+the VBV buffer is encoded again at a higher QP.
 Everything else raises NotImplementedError at construction.
 """
 from __future__ import annotations
@@ -20,7 +23,7 @@ import numpy as np
 
 from x265_tpu_torch.api.params import Param, check_params
 from x265_tpu_torch.engine.ctu_writer import FrameDecisions
-from x265_tpu_torch.engine.planes import FramePlanes, MELuma
+from x265_tpu_torch.engine.planes import FramePlanes, MELuma, is_planes
 from x265_tpu_torch.hevc.bitstream import (
     annexb, make_nal, NAL_IDR_W_RADL, NAL_TRAIL_R,
     NAL_VPS, NAL_SPS, NAL_PPS,
@@ -135,30 +138,19 @@ def _enforce_level(p, level_idc: int) -> None:
 def _check_supported(p) -> None:
     """Raise NotImplementedError, naming the option, for everything this
     port does not encode yet — never silently encode something else."""
-    from x265_tpu_torch.api.params import RC_CQP
     bad = []
     if p.keyint == 1:
         bad.append("keyint 1 (the all-intra pipelined path)")
     if p.bframes > 0:
         bad.append("bframes > 0")
-    if p.rc_mode != RC_CQP:
-        bad.append("rate control other than CQP (crf/bitrate)")
-    if p.scenecut > 0:
-        bad.append("scenecut > 0 (needs the lookahead)")
-    # cu_tree only adds offsets from lookahead records: it is inert, as
-    # in the JAX package, exactly while no lookahead runs
-    need_la = p.rc_mode != RC_CQP or (p.scenecut > 0 and p.keyint != 1
-                                      and not p.lossless)
-    if p.cu_tree and need_la:
-        bad.append("cu_tree with a lookahead")
     for name in ("rdoq_level", "tskip", "lossless", "wpp", "hist_scenecut",
                  "frame_dup", "intra_refresh", "scaling_lists", "nr_intra",
                  "nr_inter", "qpfile", "analysis_save", "analysis_load",
                  "zones", "pass_num"):
         if getattr(p, name, 0):
             bad.append(name)
-    if p.rd_level >= 3:
-        bad.append("rd_level >= 3")
+    if p.rd_level >= 4:
+        bad.append("rd_level >= 4")
     if p.tu_inter_depth >= 2:
         bad.append("tu_inter_depth >= 2")
     if p.slices > 1:
@@ -314,17 +306,21 @@ class Encoder:
         self.anchor = None           # (poc, (y, cb, cr)) last anchor recon
         self._colmv = {}             # poc -> ColCtx (TMVP source fields)
         self.anchors = []            # retained anchors, nearest first
-        self.pending = []            # queued (poc, frame) awaiting emission
+        # queued (poc, frame, cost, lookahead record, lowres plane)
+        self.pending = []
         self._zero_ref = None        # (pad, all-zero padded planes)
         # differential-test hook: False routes the deblock through the
         # numpy reference (hevc/deblock.py) instead of the device
         self.use_tpu_loopfilter = True
+        from x265_tpu_torch.engine.lookahead import Lookahead
         from x265_tpu_torch.engine.ratecontrol import RateControl
         self.rc = RateControl(p)
+        self.vbv_reencodes = 0       # pictures coded again under VBV
+        self.la = Lookahead(p.width, p.height, p.bit_depth,
+                            device=self.device)
+        self._anchor_low = None      # lowres plane of the last anchor
+        self._cutree = {}            # poc -> per-CTB cuTree QP offsets
         self.frame_stats = []        # per-frame records in encode order
-
-    # -- public API --
-
 
     # -- public API --
 
@@ -372,8 +368,27 @@ class Encoder:
         out = b""
         is_idr = (self.frame_count == 0 or
                   (p.keyint > 0 and self.frames_since_idr >= p.keyint))
-        # CQP without scenecut needs no lookahead: frame costs are unit
-        cost = 1.0
+        # lookahead: needed by rate control and/or scenecut detection
+        from x265_tpu_torch.api.params import RC_CQP
+        need_la = (self.rc.mode != RC_CQP or
+                   (p.scenecut > 0 and p.keyint != 1 and not p.lossless))
+        if need_la:
+            from x265_tpu_torch.utils.profiling import scope
+            with scope("lookahead"):
+                cost, icost, pcost = self.la.frame_costs(frame[0], is_idr)
+        else:
+            cost, icost, pcost = 1.0, 1.0, 0.0
+        # scenecut (slicetype.cpp:2186 analog): the inter path barely beats
+        # intra => new scene; respect min-keyint
+        min_ki = p.min_keyint or (self.bframes + 1)
+        # --scenecut-bias scales the threshold (x265 scenecutBias is a
+        # percentage, slicetype.cpp:2279; default 5.0 == our baseline)
+        sc_thresh = (p.scenecut / 400.0) * (p.scenecut_bias / 5.0)
+        if (not is_idr and p.scenecut > 0 and
+                self.frames_since_idr >= min_ki and
+                pcost >= (1.0 - sc_thresh) * icost):
+            is_idr = True
+            self._scenecut_frames.add(self.frame_count)
         self.frame_count += 1
         if is_idr:
             if (p.open_gop and self.anchor is not None
@@ -383,6 +398,7 @@ class Encoder:
                 # queued, so it has no leading pictures
                 out += self._emit_minigop(cra=(frame, cost))
                 self.frames_since_idr = 1
+                self._anchor_low = self.la.last_low if need_la else None
                 return out
             out += self.flush()               # close any open mini-GOP
             self.poc = 0
@@ -393,15 +409,20 @@ class Encoder:
             self.frames_since_idr = 1
             qp = self.rc.start(SLICE_I, cost)
             au = self._encode_intra_frame(*frame, decisions, qp=qp)
+            au = self._vbv_reencode(au, lambda rq: self._encode_intra_frame(
+                *frame, decisions, qp=rq))
             self.rc.end(len(au) * 8)
             out += au
             self.anchor = (0, self._last_recon)
             self.anchors = [self.anchor]
+            self._anchor_low = self.la.last_low if need_la else None
             self.poc = 1
             return out
         self.frames_since_idr += 1
+        rec = self.la.last_blocks if need_la else None
+        low = self.la.last_low if need_la else None
         self._input_idx[self.poc] = self.frame_count - 1
-        self.pending.append((self.poc, frame, cost))
+        self.pending.append((self.poc, frame, cost, rec, low))
         self.poc += 1
         out += self._emit_minigop()
         return out
@@ -432,6 +453,26 @@ class Encoder:
             return b""
         return self._emit_minigop()
 
+    def reconfigure(self, **kwargs) -> None:
+        """x265_encoder_reconfig analog (api.cpp:307): swap rate-control
+        and analysis knobs mid-stream. Only settings that do not change
+        the parameter sets are accepted (qp/crf/bitrate/aq/scenecut/...);
+        B frames are not ported and raise."""
+        allowed = {"qp", "crf", "bitrate", "aq_mode", "aq_strength",
+                   "scenecut", "me_range", "sub_me", "bframes",
+                   "vbv_maxrate", "vbv_bufsize", "psnr_metrics"}
+        bad = set(kwargs) - allowed
+        if bad:
+            raise ValueError(f"not reconfigurable mid-stream: {sorted(bad)}")
+        if kwargs.get("bframes", 0) > 0:
+            raise NotImplementedError(
+                "x265_tpu_torch does not support yet: bframes > 0")
+        for k, v in kwargs.items():
+            setattr(self.param, k, v)
+        if {"qp", "crf", "bitrate", "vbv_maxrate",
+                "vbv_bufsize"} & set(kwargs):
+            from x265_tpu_torch.engine.ratecontrol import RateControl
+            self.rc = RateControl(self.param)
 
     def close(self) -> None:
         """End of encode: write 2-pass stats / close analysis files
@@ -448,6 +489,7 @@ class Encoder:
         cra=(frame, cost): open-GOP keyframe — the given frame is coded
         as a CRA intra picture."""
         from x265_tpu_torch.hevc.bitstream import NAL_CRA
+        p = self.param
         if cra is not None:
             assert not self.pending
             cra_frame, cra_cost = cra
@@ -461,23 +503,64 @@ class Encoder:
             au = self._encode_intra_frame(*cra_frame, qp=qp, poc=cra_poc,
                                           nal_type=NAL_CRA,
                                           keep_pocs=keep)
+            # VBV emergency re-encode: scene-cut CRAs are exactly the
+            # pictures that blow a tight buffer (see the IDR/P paths)
+            au = self._vbv_reencode(au, lambda rq: self._encode_intra_frame(
+                *cra_frame, qp=rq, poc=cra_poc, nal_type=NAL_CRA,
+                keep_pocs=keep))
             self.rc.end(len(au) * 8)
             # random-access point: nothing before the CRA may be
             # referenced afterwards
             self.anchor = (cra_poc, self._last_recon)
             self.anchors = [self.anchor]
             return au
-        anchor_poc, anchor_frame, anchor_cost = self.pending.pop(0)
+        (anchor_poc, anchor_frame, anchor_cost, anchor_rec,
+         anchor_low) = self.pending.pop(0)
+        self._anchor_low = anchor_low
+        # cuTree (slicetype.cpp:2479 analog): with no B frames the chain
+        # is the anchor's own record, which propagates nothing; the
+        # offsets are computed all the same, as the reference does
+        self._cutree = {}
+        if (p.cu_tree and anchor_rec is not None and
+                self.pps.cu_qp_delta_enabled):
+            from x265_tpu_torch.engine.lookahead import cutree_propagate
+            off = cutree_propagate([anchor_rec], p.ctb_log2,
+                                   self.rc.qcompress)
+            if off is not None:
+                self._cutree[anchor_poc] = off
+        # VBV/ABR lookahead window: nothing is queued behind the anchor
         self.rc.set_lookahead([])
         qp = self.rc.start(SLICE_P, anchor_cost)
         out = self._encode_p_frame(anchor_frame, anchor_poc,
                                    list(self.anchors), qp)
+        # VBV emergency: band-graded re-encode(s) when the coded frame
+        # would underflow the CPB (the whole-frame analog of x265's row
+        # re-encode, ratecontrol.cpp:2526)
+        out = self._vbv_reencode(out, lambda rq: self._encode_p_frame(
+            anchor_frame, anchor_poc, list(self.anchors), rq))
         self.rc.end(len(out) * 8)
         new_anchor = (anchor_poc, self._last_recon)
         self.anchors.insert(0, new_anchor)
         del self.anchors[max(1, self.param.ref):]
         self.anchor = new_anchor
         return out
+
+    def _vbv_reencode(self, au, rebuild):
+        """Bounded VBV emergency loop: while the coded picture would
+        underflow the CPB, re-encode at the RC's escalated QP (up to 3
+        passes — one step rarely suffices on a scene-cut keyframe under
+        a sub-second buffer). x265 analog: rowVbvRateControl's
+        continuous mid-frame escalation, ratecontrol.cpp:2526. The new
+        pass replaces the picture's stats record, recon, colocated
+        motion and weights (each keyed or overwritten by the pass)."""
+        for _ in range(3):
+            rq = self.rc.reencode_qp(len(au) * 8)
+            if rq is None:
+                return au
+            self.vbv_reencodes += 1
+            self.frame_stats.pop()
+            au = rebuild(rq)
+        return au
 
     def _slice_qp(self, slice_type: int) -> int:
         """CQP per-type QP ladder (x265 ip/pb factor 1.4/1.3 analog,
@@ -697,6 +780,17 @@ class Encoder:
                 used_s0=[False] * len(keep_pocs))
         if decisions is None:
             decisions = self._intra_decisions(y)
+            if p.rd_level >= 3:
+                # intra quadtree depth-1 RDO (compressIntraCU analog):
+                # promote 16-CU groups to 32 intra CUs where full
+                # T/Q/recon RD wins (models/intra_rdo)
+                from x265_tpu_torch.models.intra_rdo import \
+                    rd_intra_promote32
+                from x265_tpu_torch.utils.profiling import scope
+                with scope("rd_promote"):
+                    rd_intra_promote32((np.asarray(y), np.asarray(cb),
+                                        np.asarray(cr)), decisions, qp, p,
+                                       device=self.device)
         slice_data, recon = self._inter_slice_data(
             (y, cb, cr), sh, decisions, ([], []), ((), ()), poc, SLICE_I)
         self._record_colmv(decisions, ((), ()), poc)
@@ -885,6 +979,21 @@ class Encoder:
                 cy = -(-p.height // p.ctu_size)
                 cx = -(-p.width // p.ctu_size)
                 off = np.zeros((cy, cx), dtype=np.float64)
+            ct = self._cutree.pop(poc, None)
+            if ct is not None and ct.shape == off.shape:
+                off = off + ct
+            grad = self.rc.band_grad_pending
+            if grad:
+                # band-graded VBV emergency re-encode (rowVbvRateControl
+                # shape, ratecontrol.cpp:2526): sh.qp already carries the
+                # uniform +grad emergency; re-spread it so early CTB rows
+                # keep ~half the delta and late rows absorb ~1.5x
+                self.rc.band_grad_pending = 0
+                rows = off.shape[0]
+                ramp = (np.round(np.linspace(-grad / 2.0, grad / 2.0,
+                                             max(rows, 2)))
+                        .astype(np.int32)[:rows])
+                off = off + ramp[:, None]
             # one rounding at the end; +-12 keeps cu_qp_delta well inside
             # the spec's +-(26+QpBdOffsetY/2) coding range (7.4.9.10)
             off = np.clip(np.rint(off), -12, 12)
@@ -1204,11 +1313,29 @@ class Encoder:
         return dir_out, mv_out, ref_out, satd_out
 
 
-    def _merge_cu32(self, dec, satd16=None, qp=None) -> None:
+    @staticmethod
+    def _dominant_mv(dec):
+        """(mv [2,2], dir) of the most common inter motion tuple, or
+        (None, None) — the unification bias shared by both promotion
+        levels so merge chains span group boundaries."""
+        if dec.inter8 is None or not dec.inter8.any():
+            return None, None
+        sel = dec.inter8.astype(bool)
+        rows = np.concatenate(
+            [dec.mv8[sel].reshape(int(sel.sum()), -1),
+             dec.dir8[sel].reshape(-1, 1)], axis=1)
+        vals, counts = np.unique(rows, axis=0, return_counts=True)
+        best = vals[counts.argmax()]
+        return best[:4].reshape(2, 2).astype(np.int32), int(best[4])
+
+    def _merge_cu32(self, dec, satd16=None, qp=None, rd_ctx=None) -> None:
         """Bottom-up CU merging: promote 2x2 groups of 16x16 blocks to one
         32x32 CU when they carry identical decisions — one skip/merge per
         32 instead of four (the quadtree dial of Analysis::compressCTU;
-        decisions-only, the finalizer already walks any CU size)."""
+        decisions-only, the finalizer already walks any CU size). Under
+        rd 3 (rd_ctx = (frame, padded L0 refs, padded L1 refs)) the inter
+        groups and then the intra groups are decided by recon-in-the-loop
+        RD on the device (models/rdo.py, models/intra_rdo.py)."""
         p = self.param
         if p.ctb_log2 < 5:
             return
@@ -1234,7 +1361,37 @@ class Encoder:
                  else np.zeros_like(d))
             same_ref = (r == r[:, :, :1]).all(axis=2)
             ok_inter = all16 & inter & same_dir & same_mv & same_ref
-            if satd16 is not None and qp is not None:
+            if p.rd_level >= 3 and rd_ctx is not None and qp is not None:
+                # recon-in-the-loop promotion WITH motion unification (x265
+                # compressInterCU_rd0_4 + checkMerge2Nx2N): candidates only
+                # need uniform dir/ref — the 32 CU is coded at the group's
+                # modal MV and both trees are costed on the device
+                elig = all16 & inter & same_dir & same_ref
+                if elig.any():
+                    from x265_tpu_torch.models.rdo import rd_promote32
+                    ys, xs = np.nonzero(elig)
+                    cand = np.stack([ys, xs], 1)
+                    # the 4 z-order 16x16 sub-blocks' motions: group
+                    # member (2*dy)*4 + 2*dx of the 4x4 8-block view
+                    sub = np.array([0, 2, 8, 10])
+                    mv4 = mv[ys, xs][:, sub]          # [G,4,2,2]
+                    bias_mv, bias_dir = self._dominant_mv(dec)
+                    promote, mv_uni = rd_promote32(
+                        rd_ctx[0], rd_ctx[1], rd_ctx[2], cand, mv4,
+                        d[ys, xs, 0], r[ys, xs, 0], int(qp), p,
+                        mv_bias=bias_mv, bias_dir=bias_dir,
+                        device=self.device)
+                    keep = np.zeros_like(elig)
+                    keep[ys, xs] = promote
+                    ok_inter = keep
+                    # promoted groups adopt the unified motion
+                    for (gy, gx, m_) in zip(ys[promote], xs[promote],
+                                            mv_uni[promote]):
+                        dec.mv8[gy * 4:gy * 4 + 4,
+                                gx * 4:gx * 4 + 4] = m_
+                else:
+                    ok_inter = elig
+            elif satd16 is not None and qp is not None:
                 # promote only skip-likely groups: a 32x32 TU re-quantizes
                 # the residual differently, so uniform motion alone is
                 # bit-neutral; low energy => the 32 CU skips and the
@@ -1248,22 +1405,35 @@ class Encoder:
                 ok_inter &= g16 < 192.0 * qstep
         else:
             ok_inter = np.zeros((h32, w32), dtype=bool)
-        # heuristic: merge only uniform planar/DC (32x32 prediction
-        # of flat areas is near-identical to four 16s)
-        modes = grp(dec.luma_mode8)
-        same_mode = (modes == modes[:, :, :1]).all(axis=2)
-        flat = modes[:, :, 0] <= 1
-        if dec.inter8 is not None:
-            not_inter = ~grp(dec.inter8.astype(bool)).any(axis=2)
+        rd_intra = (p.rd_level >= 3 and rd_ctx is not None
+                    and qp is not None)
+        if rd_intra:
+            # recon-in-loop intra promotion runs below (after the inter
+            # map update) — it needs cu_log2_map still at 4 here
+            ok_intra = np.zeros((h32, w32), dtype=bool)
         else:
-            not_inter = np.ones((h32, w32), dtype=bool)
-        ok_intra = all16 & same_mode & flat & not_inter
+            # heuristic: merge only uniform planar/DC (32x32 prediction
+            # of flat areas is near-identical to four 16s)
+            modes = grp(dec.luma_mode8)
+            same_mode = (modes == modes[:, :, :1]).all(axis=2)
+            flat = modes[:, :, 0] <= 1
+            if dec.inter8 is not None:
+                not_inter = ~grp(dec.inter8.astype(bool)).any(axis=2)
+            else:
+                not_inter = np.ones((h32, w32), dtype=bool)
+            ok_intra = all16 & same_mode & flat & not_inter
         ok = ok_inter | ok_intra
         if ok.any():
             up = np.repeat(np.repeat(ok, 4, 0), 4, 1)
             dec.cu_log2_map[:h32 * 4, :w32 * 4][up] = 5
+        if rd_intra:
+            # intra quadtree depth-1 RDO on the remaining intra groups
+            # (compressIntraCU analog, analysis.cpp:514)
+            from x265_tpu_torch.models.intra_rdo import rd_intra_promote32
+            rd_intra_promote32(rd_ctx[0], dec, int(qp), p,
+                               device=self.device)
 
-    def _merge_cu64(self, dec, satd16=None, qp=None) -> None:
+    def _merge_cu64(self, dec, satd16=None, qp=None, rd_ctx=None) -> None:
         """Promote 2x2 groups of 32x32 inter CUs to one 64x64 CU when
         they carry identical motion — one skip/merge per CTB instead of
         four (x265 codes these as depth-0 skip CUs, analysis.cpp:1146).
@@ -1291,7 +1461,32 @@ class Encoder:
         r = (grp(dec.ref8) if dec.ref8 is not None else np.zeros_like(d))
         same_ref = (r == r[:, :, :1]).all(axis=2)
         ok = all32 & inter & same_dir & same_mv & same_ref
-        if satd16 is not None and qp is not None:
+        if p.rd_level >= 3 and rd_ctx is not None and qp is not None:
+            # same-motion groups promote unconditionally (the implicit
+            # 4x32 TU split makes the residual coding identical — the
+            # merge strictly saves three CU headers); groups of 32s with
+            # only dir/ref in common additionally try a UNIFIED motion
+            # via the recon-in-loop RD pass (see _merge_cu32)
+            elig = all32 & inter & same_dir & same_ref & ~ok
+            if elig.any():
+                from x265_tpu_torch.models.rdo import rd_promote
+                ys, xs = np.nonzero(elig)
+                cand = np.stack([ys, xs], 1)
+                # quadrant (dy,dx) representative member of the 8x8
+                # 8-block group view: (4*dy)*8 + 4*dx
+                sub = np.array([0, 4, 32, 36])
+                mv4 = mv[ys, xs][:, sub]
+                bias_mv, bias_dir = self._dominant_mv(dec)
+                promote, mv_uni = rd_promote(
+                    rd_ctx[0], rd_ctx[1], rd_ctx[2], cand, mv4,
+                    d[ys, xs, 0], r[ys, xs, 0], int(qp), p, n=64,
+                    mv_bias=bias_mv, bias_dir=bias_dir, device=self.device)
+                pys, pxs = ys[promote], xs[promote]
+                for (gy, gx, m_) in zip(pys, pxs, mv_uni[promote]):
+                    dec.mv8[gy * 8:gy * 8 + 8, gx * 8:gx * 8 + 8] = m_
+                ok = ok.copy()
+                ok[pys, pxs] = True
+        elif satd16 is not None and qp is not None:
             g16 = satd16[:h64 * 4, :w64 * 4].reshape(
                 h64, 4, w64, 4).sum(axis=(1, 3))
             qstep = 2.0 ** ((qp - 4) / 6.0)
@@ -1401,7 +1596,25 @@ class Encoder:
         mv2 = np.zeros((nby, nbx, 2, 2), dtype=np.int32)
         mv2[:, :, 0] = best_mv
         dir_blk = np.ones((nby, nbx), np.int32)
-        if p.rd_level >= 2:
+        # full-plane RD context: current frame + padded refs, all three
+        # planes (a weighted luma-only search reference leaves it out)
+        rd_refs = None
+        if (p.rd_level >= 3 and frame is not None
+                and all(is_planes(r) for r in refs)):
+            rd_refs = [self._pad_ref(r) for r in refs]
+        if rd_refs is not None:
+            # recon-in-the-loop merge adoption (rdo.rd_adopt16): every
+            # block is coded under its own motion and each dominant
+            # tuple; real SSE+rate replaces the SATD slack heuristic
+            from x265_tpu_torch.engine.me import dominant_tuples
+            from x265_tpu_torch.models.rdo import rd_adopt16
+            cands = dominant_tuples(dir_blk, mv2, best_ref, inter_blk)
+            if cands:
+                with scope("rd_adopt"):
+                    dir_blk, mv2, best_ref, _ad = rd_adopt16(
+                        frame, rd_refs, [], inter_blk, mv2, dir_blk,
+                        best_ref, cands, qpv, p, device=self.device)
+        elif p.rd_level >= 2:
             bits_now = ((best_cost - satd16) / max(lam, 1e-3) + 4.0)
             dir_blk, mv2, best_ref, satd16 = self._adopt_coherent(
                 np.asarray(y), ref_ys, [], dir_blk, mv2, best_ref,
@@ -1411,9 +1624,11 @@ class Encoder:
         dec.mv8 = self._to8(mv2, h8, w8, rep)
         dec.ref8 = self._to8(best_ref, h8, w8, rep)
         if p.rd_level >= 2:      # the quadtree dial (x265 --rd)
+            rd_ctx = (None if rd_refs is None
+                      else (frame, rd_refs, []))
             with scope("rd_promote"):
-                self._merge_cu32(dec, satd16, qpv)
-                self._merge_cu64(dec, satd16, qpv)
+                self._merge_cu32(dec, satd16, qpv, rd_ctx)
+                self._merge_cu64(dec, satd16, qpv, rd_ctx)
         return dec
 
 

@@ -96,3 +96,30 @@ def rate_fx_np(l: np.ndarray, k: np.ndarray) -> np.ndarray:
             l == 1, int(k[GT1_0]),
             int(k[GT1_1]) + np.where(l == 2, int(k[GT2_0]),
                                      int(k[GT2_1]) + rem)))
+
+
+def rate_fx_t(l, k):
+    """The shared formula above on a torch integer tensor: per-coefficient
+    Q15 rate of |levels| l as int32 (the escape's log2 saturates at 15, as
+    the device form of the JAX package does). k: [8] int32 tensor row."""
+    import torch
+    l = l.abs().to(torch.int32)
+    esc = (l - 5).clamp(1, 1 << 16)
+    # floor(log2(esc)): frexp's exponent is exact for integers < 2^24
+    lg = (torch.frexp(esc.to(torch.float32)).exponent - 1).clamp(max=15)
+    rem = torch.where(l < 6, (l - 2).clamp(min=0) << 15,
+                      (4 + 2 * lg.to(torch.int32)) << 15)
+    k = k.to(torch.int32)
+    return torch.where(
+        l == 0, k[SIG0],
+        k[SIG1] + EP_BIT + torch.where(
+            l == 1, k[GT1_0],
+            k[GT1_1] + torch.where(l == 2, k[GT2_0], k[GT2_1] + rem)))
+
+
+def rate_bits_j(l, k):
+    """Per-coefficient rate of |levels| l in BITS (float32 torch tensor) —
+    the estBit-based replacement for the static bin-count model in the RD
+    promotion/adoption costs (models/rdo.py). k: [8] int32 tensor row."""
+    import torch
+    return rate_fx_t(l, k).to(torch.float32) * (1.0 / 32768.0)
