@@ -8,14 +8,16 @@ Builds every kernel from the sources in this checkout, holds each against
 its plain PyTorch version on the card (exact equality: they are integer
 kernels), also at the lookahead's shapes, encodes small clips, decodes
 them back and compares the streams of the golden cases with the committed
-digests, then drives the three main paths at 1920x1080 through
+digests, then drives the four main paths at 1920x1080 through
 Encoder.encode — the low-latency I/P encode (ultrafast + zerolatency), the
-filtered one (fast + zerolatency: deblock, SAO, AQ, weightp, 3 refs) and
-the live one (medium + zerolatency under CRF 23 and a 6000 kbps VBV
-buffer: the lookahead, scenecut, cuTree and rd 3, on a clip with a scene
-cut) — and checks that each went through every kernel. One JSON line per
-phase; any failure ends the run with a non-zero exit code and no result
-line.
+filtered one (fast + zerolatency: deblock, SAO, AQ, weightp, 3 refs), the
+live one (medium + zerolatency under CRF 23 and a 6000 kbps VBV buffer:
+the lookahead, scenecut, cuTree and rd 3, on a clip with a scene cut) and
+x265's default, bench.py's config 3 (medium without a tune at 4000 kbps
+ABR, 25 fps: B frames placed by b-adapt 2, the B-pyramid, bi-prediction)
+— and checks that each went through every kernel of its path. One JSON
+line per phase; any failure ends the run with a non-zero exit code and no
+result line.
 """
 import contextlib
 import ctypes
@@ -39,11 +41,11 @@ from x265_tpu_torch.decoder.decoder import HEVCDecoder
 from x265_tpu_torch.engine import lookahead, me
 from x265_tpu_torch.models import inter_residual
 from x265_tpu_torch.ops import cuda_build, cuda_kernels, cuda_mc
-from x265_tpu_torch.hevc.bitstream import split_annexb
+from x265_tpu_torch.hevc.bitstream import NAL_TRAIL_R, split_annexb
 from x265_tpu_torch.utils import devcache, profiling, testclip
 from x265_tpu_torch.utils.convert import interp_filters
-from x265_tpu_torch.utils.testclip import (make_clip, make_cut_clip,
-                                            make_ramp_clip)
+from x265_tpu_torch.utils.testclip import (clip_crowd1080, make_clip,
+                                            make_cut_clip, make_ramp_clip)
 from x265_tpu_torch import native
 
 DEV = torch.device("cuda")
@@ -193,6 +195,18 @@ def live_params(w, h):
     return p
 
 
+def medium_params(w, h):
+    """bench.py config 3 (its primary metric): x265's default preset,
+    medium, with no tune, ABR at 4000 kbps, 25 fps: bframes 4, b-adapt 2,
+    b-pyramid, rc-lookahead 20, frame-threads 2, ref 3, rd 3, subme 2,
+    hex, deblock, sao, aq-mode 2, cu-tree, weightp."""
+    p = param_default_preset("medium")
+    param_parse(p, "bitrate", "4000")
+    p.width, p.height = w, h
+    p.fps_num, p.fps_den = 25, 1
+    return p
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Rebind, for the duration, the names through which the engine
@@ -204,7 +218,8 @@ def plain_versions():
              me._satd_kernel, me.sad_sweep_argmin, me.sad_local_argmin,
              lookahead.sad_sweep_argmin)
     # models/rdo.py and models/intra_rdo.py reach kernels 1 and 2 through
-    # inter_residual, engine/lookahead.py kernel 4 through me
+    # inter_residual, engine/lookahead.py kernel 4 through me; me._bi_satd
+    # reaches kernels 3 and 4 through me
     inter_residual.tile_gather = cuda_mc.tile_gather_plain
     inter_residual.mc_gather_interp = cuda_mc.mc_gather_interp_plain
     me.tile_gather_planes = cuda_mc.tile_gather_planes_plain
@@ -635,6 +650,34 @@ def kernel_phase():
             bytes=(gather_bytes(pl.numel(), N_, side, N_ * n_ * n_, 5)
                    + filt.numel() * 4),
             ops=N_ * 2 * taps * (side * n_ + n_ * n_))
+    # a B picture's residual (models/inter_residual.py): the list-1 stack
+    # holds one reference; every 16x16 block of the frame reads it (the L1
+    # and bi lanes of a B picture whose CUs all predict from both lists),
+    # around the opposite motion of the list-0 side; chroma held too
+    by, bx = np.divmod(np.arange(N), W // 16)
+    bmv = rng.integers(-6, 7, (N, 2)) + np.array([-37, 22])
+    for is_c in (False, True):
+        pl, filt, taps = ((refs_c[2:3].contiguous(), chroma, 4) if is_c
+                          else (refs_y[2:3].contiguous(), luma, 8))
+        n_ = 8 if is_c else 16
+        a = (*mc_lanes(bx * 16, by * 16, bmv, np.zeros(N, np.int64), 80,
+                       is_c), filt, n_, taps, 8)
+        side = n_ + taps - 1
+        err = check_equal(f"mc_gather_interp bi_residual n={n_}",
+                          cuda_mc.mc_gather_interp(pl, *a),
+                          cuda_mc.mc_gather_interp_plain(pl, *a))
+        if is_c:
+            continue
+        rows["mc_gather_interp"]["bi_residual"] = dict(
+            shape=f"planes[1,{pl.shape[1]},{pl.shape[2]}] (list 1) N={N} "
+                  f"n={n_} taps={taps}", max_abs_err=err,
+            ms=time_ms(lambda: cuda_mc.mc_gather_interp(pl, *a)),
+            cold_l2_ms=time_cold_ms(lambda: cuda_mc.mc_gather_interp(pl, *a)),
+            plain_ms=time_ms(lambda: cuda_mc.mc_gather_interp_plain(pl, *a),
+                             5),
+            bytes=(gather_bytes(pl.numel(), N, side, N * n_ * n_, 5)
+                   + filt.numel() * 4),
+            ops=N * 2 * taps * (side * n_ + n_ * n_))
     del refs_y, refs_c
 
     # --- the two gathers and the fused gather + SATD: edge cases --------
@@ -714,6 +757,29 @@ def kernel_phase():
         bytes=gather_bytes(16 * Hm * Wm, N, n, N * n * n, 3), ops=0,
         library_ms=time_ms(lambda: torch.take(flat, idx)))
     del idx
+    # me._bi_satd: one block per 16x16 of the frame at its refined vector
+    # on one reference's phase planes (the entry runs twice a B picture,
+    # once a list), lanes in raster order around a smooth field
+    by, bx = np.divmod(np.arange(Nb), 120)
+    mvb = rng.integers(-6, 7, (Nb, 2)) + np.array([37, -22])
+    bi = (to_dev((mvb[:, 1] & 3) * 4 + (mvb[:, 0] & 3)),
+          to_dev((mvb[:, 1] >> 2) + by * 16 + margin),
+          to_dev((mvb[:, 0] >> 2) + bx * 16 + margin))
+    err_b = check_equal("tile_gather_planes bi_satd",
+                        cuda_mc.tile_gather_planes(pp, *bi, n),
+                        cuda_mc.tile_gather_planes_plain(pp, *bi, n))
+    idx = (cuda_mc._window_index(bi[1], bi[2], n, Hm, Wm)
+           + bi[0].long()[:, None, None] * (Hm * Wm))
+    rows["tile_gather_planes"]["bi_satd"] = dict(
+        shape=f"planes[16,{Hm},{Wm}] N={Nb} n=16", max_abs_err=err_b,
+        ms=time_ms(lambda: cuda_mc.tile_gather_planes(pp, *bi, n)),
+        cold_l2_ms=time_cold_ms(
+            lambda: cuda_mc.tile_gather_planes(pp, *bi, n)),
+        plain_ms=time_ms(
+            lambda: cuda_mc.tile_gather_planes_plain(pp, *bi, n)),
+        bytes=gather_bytes(16 * Hm * Wm, Nb, n, Nb * n * n, 3), ops=0,
+        library_ms=time_ms(lambda: torch.take(flat, idx)))
+    del idx
 
     # --- tile_gather_planes_satd: the same round, scored, nothing written
     cur_b = rnd_i32(rng, 0, 256, Nb * n * n).reshape(Nb, n, n)
@@ -764,6 +830,19 @@ def kernel_phase():
     la_ = rnd_i32(rng, -128, 128, nl * 64).reshape(nl, 8, 8)
     la_[0] = -128
     lb_ = torch.zeros_like(la_)
+    # me._bi_satd's SATD: the current blocks against the averaged
+    # predictions, [8160,16,16]
+    a_b = rnd_i32(rng, 0, 256, Nb * 256).reshape(Nb, 16, 16)
+    b_b = rnd_i32(rng, 0, 256, Nb * 256).reshape(Nb, 16, 16)
+    rows["satd8x8"]["bi_satd"] = dict(
+        shape=f"a,b[{Nb},16,16] int32",
+        max_abs_err=check_equal("satd8x8 bi_satd",
+                                cuda_kernels.satd(a_b, b_b),
+                                cuda_kernels.satd_plain(a_b, b_b)),
+        ms=time_ms(lambda: cuda_kernels.satd(a_b, b_b)),
+        plain_ms=time_ms(lambda: cuda_kernels.satd_plain(a_b, b_b), 5),
+        bytes=2 * Nb * 256 * 4 + Nb * 4, ops=Nb * 4 * (64 + 384 + 64),
+        library_ms=None)
     rows["satd8x8"]["lookahead"] = dict(
         shape=f"a[{nl},8,8] int32 in [-128, 127], b zeros",
         max_abs_err=check_equal("satd8x8 lookahead",
@@ -874,6 +953,30 @@ def kernel_phase():
         bytes=(cur.numel() + ref.numel()) * 2 + n * n * 4 + nb * 8,
         ops=3 * n * n * h * w + 2 * n * n * nb)
 
+    # the slice-type search's pair costs (lookahead._batched_pair_fn): a
+    # lowres plane against another up to bframes + 1 pictures away,
+    # edge-padded by 8, S=8, no mv cost (n = 17: runs of eight dy at 0, 8
+    # and 9)
+    h, w, S, R = 544, 960, 8, 8
+    sweep_case("slicetype flat, mvcost=0", 64, 96, S, R, flat=True,
+               zero_cost=True)
+    cur, ref, mvc, n, _e1, e2 = sweep_case("slicetype 544x960", h, w, S, R,
+                                           zero_cost=True)
+    nb = (h // S) * (w // S)
+    rows["sad_sweep_argmin"]["slicetype"] = dict(
+        shape=f"cur[{h},{w}] ref_pad[{h + 2 * R},{w + 2 * R}] i16 S=8 R=8 "
+              f"mvcost[{n * n}] zeros",
+        max_abs_err=e2,
+        ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R),
+                   10),
+        cold_l2_ms=time_cold_ms(
+            lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R)),
+        plain_ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin_plain(
+            cur, ref, mvc, S, R), 3),
+        diffs=n * n * h * w,
+        bytes=(cur.numel() + ref.numel()) * 2 + n * n * 4 + nb * 8,
+        ops=3 * n * n * h * w + 2 * n * n * nb)
+
     # --- sad_local_argmin: the window search around the HME centres ------
     local_edge_cases(rng)
     rows["sad_local_argmin"] = local_main_case(rng)
@@ -900,15 +1003,20 @@ META = {
 }
 
 
-# the entries no main path launches: those that return what the TPU
-# kernel returns (the encoder calls the fused entry of the same kernel
-# instead)
-OFF_PATH = ("sad_sweep", "tile_gather_planes")
+# the entries a main path does not launch: sad_sweep returns what the TPU
+# kernel returns (every path calls the fused entries of the same kernel
+# instead); tile_gather_planes, the blocks entry of kernel 3, serves
+# me._bi_satd, which only B pictures run
+LOW_LATENCY_OFF_PATH = ("sad_sweep", "tile_gather_planes")
+OFF_PATH = {"encode_1080p": LOW_LATENCY_OFF_PATH,
+            "encode_1080p_filtered": LOW_LATENCY_OFF_PATH,
+            "encode_1080p_live": LOW_LATENCY_OFF_PATH,
+            "encode_1080p_medium": ("sad_sweep",)}
 
 
 # the extra shapes a kernel is held and timed at, beside its main row
 SHAPES_ON_PATH = ("lookahead", "rd_adopt_luma", "rd_adopt_chroma",
-                  "rd_promote64")
+                  "rd_promote64", "bi_residual", "bi_satd", "slicetype")
 
 
 def bounds(r, cal):
@@ -936,14 +1044,18 @@ def bounds(r, cal):
 
 def encode_and_decode(what, params, frames):
     """Encode on the card, decode with the port's decoder, and require
-    the decoded pictures to equal the encoder's recon exactly."""
+    the decoded pictures to equal the encoder's recon exactly. Both in
+    display order: B pictures finish out of order, and a picture coded
+    again under VBV reports twice (the last report is the one in the
+    stream)."""
     devcache.clear()
     enc = Encoder(params)
-    recons = []
-    enc.recon_sink = lambda idx, planes: recons.append(planes)
+    got = {}
+    enc.recon_sink = lambda idx, planes: got.__setitem__(idx, planes)
     t0 = time.time()
     stream = enc.encode(frames)
     t_enc = time.time() - t0
+    recons = [got[i] for i in sorted(got)]
     pics = HEVCDecoder().decode(stream)
     if len(pics) != len(frames) or len(recons) != len(frames):
         fail(f"{what}: {len(pics)} pictures decoded, "
@@ -1012,13 +1124,70 @@ def golden_phase():
              ctus_with_other_qp=flips)
 
 
-def main_path(phase, params_fn, frames, card, types_want, stages_want=()):
+def check_b_structure(phase, enc, stream):
+    """Frame types in encode order: I first, at least two P and four B,
+    and wherever a mini-GOP holds three or more B pictures, the first one
+    coded after its P anchor is the pyramid's referenced B (a TRAIL_R
+    slice). Returns the types and the slices' NAL types."""
+    types = "".join(s["type"] for s in enc.frame_stats)
+    vcl = [(n[0] >> 1) & 0x3F for n in split_annexb(stream)
+           if ((n[0] >> 1) & 0x3F) < 32]
+    if len(vcl) != len(types):
+        fail(f"{phase}: {len(vcl)} slices for {len(types)} pictures")
+    if (types[0] != "I" or types.count("P") < 2 or types.count("B") < 4):
+        fail(f"{phase}: frame types {types}: expected I first, at least "
+             "two P and four B")
+    i = 0
+    while i < len(types):
+        j = i + 1
+        while j < len(types) and types[j] == "B":
+            j += 1
+        if j - i - 1 >= 3 and vcl[i + 1] != NAL_TRAIL_R:
+            fail(f"{phase}: the mini-GOP at picture {i} of {types} holds "
+                 f"{j - i - 1} B pictures and no referenced B first")
+        i = j
+    return types, vcl
+
+
+def attribute_launches(enc):
+    """Count, per kind of picture, the launches made inside the encoder
+    calls that code it: P anchors (_encode_p_frame, VBV re-encodes
+    included), I pictures (_encode_intra_frame) and B pictures (the
+    pyramid's referenced B, the leaf-B batch analysis and the B pipeline).
+    What falls outside (the lookahead, the slice-type search) is the
+    total less these. Returns {kind: {kernel: launches}}."""
+    acc = {k: dict.fromkeys(cuda_mc.launches, 0) for k in "PIB"}
+
+    def wrap(kind, fn):
+        def run(*a, **kw):
+            before = dict(cuda_mc.launches)
+            try:
+                return fn(*a, **kw)
+            finally:
+                for k, v in cuda_mc.launches.items():
+                    acc[kind][k] += v - before[k]
+        return run
+    for kind, names in (("P", ("_encode_p_frame",)),
+                        ("I", ("_encode_intra_frame",)),
+                        ("B", ("_encode_b_frame", "_precompute_b_batch",
+                               "_run_b_pipeline"))):
+        for name in names:
+            setattr(enc, name, wrap(kind, getattr(enc, name)))
+    return acc
+
+
+def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
+              whole_clip_plain=False):
     """One main path: the frames through Encoder.encode with the launch
-    counts set to 0 just before and read just after; then the first 3
-    frames again with the plain versions, which must give the same
-    bytes. Returns the launch counts."""
+    counts set to 0 just before and read just after; then the frames
+    again with the plain versions, which must give the same bytes — the
+    first 3 frames (a prefix of the stream) or, for a path with B frames,
+    whose GOPs a shorter clip changes, the whole clip. types_want: the
+    frame types in encode order, or None for the B-frame checks of
+    check_b_structure. Returns the launch counts."""
     devcache.clear()
     enc = Encoder(params_fn(W, H))
+    by_kind = attribute_launches(enc)
     profiling.reset()
     profiling.set_sync(True)
     cuda_mc.reset_launches()
@@ -1030,7 +1199,7 @@ def main_path(phase, params_fn, frames, card, types_want, stages_want=()):
     launches = dict(cuda_mc.launches)
     profiling.set_sync(False)
     missing = [k for k, v in launches.items()
-               if v == 0 and k not in OFF_PATH]
+               if v == 0 and k not in OFF_PATH[phase]]
     if missing:
         fail(f"{phase}: kernels never launched: {missing}")
     nal_types = [(n[0] >> 1) & 0x3F for n in split_annexb(stream)[:3]]
@@ -1038,7 +1207,11 @@ def main_path(phase, params_fn, frames, card, types_want, stages_want=()):
         fail(f"{phase}: stream does not start with VPS/SPS/PPS: "
              f"{nal_types}")
     types = "".join(s["type"] for s in enc.frame_stats)
-    if types != types_want:
+    extra = {}
+    if types_want is None:
+        types, vcl = check_b_structure(phase, enc, stream)
+        extra["slice_nal_types"] = vcl
+    elif types != types_want:
         fail(f"{phase}: frame types {types}, expected {types_want}")
     inter_pct = float(enc._last_analysis.inter8.astype(bool).mean())
     report = profiling.report()
@@ -1046,35 +1219,46 @@ def main_path(phase, params_fn, frames, card, types_want, stages_want=()):
     for st in stages_want:
         if not report.get(st, {}).get("calls"):
             fail(f"{phase}: stage {st} never ran")
-    extra = {}
-    if phase == "encode_1080p_live":
-        extra = {"frame_qps": [s["qp"] for s in enc.frame_stats],
-                 "vbv_reencodes": enc.vbv_reencodes,
-                 "scenecut_frames": sorted(enc._scenecut_frames),
-                 "stage_calls": {st: report[st]["calls"]
-                                 for st in stages_want}}
+    if phase in ("encode_1080p_live", "encode_1080p_medium"):
+        extra.update({"frame_qps": [s["qp"] for s in enc.frame_stats],
+                      "frame_pocs": [s["poc"] for s in enc.frame_stats],
+                      "vbv_reencodes": enc.vbv_reencodes,
+                      "scenecut_frames": sorted(enc._scenecut_frames),
+                      "stage_calls": {st: report[st]["calls"]
+                                      for st in stages_want}})
     elif phase == "encode_1080p_filtered":
         extra = check_filtered(enc, phase)
     if phase != "encode_1080p":
         cl = enc._last_analysis.cu_log2_map
         extra["cu_size_share_last_frame"] = {
             str(1 << lg): float((cl == lg).mean()) for lg in (3, 4, 5, 6)}
-    # the same first frames with the plain versions forced on the card
+    # the same frames with the plain versions forced on the card
     devcache.clear()
+    plain_frames = frames if whole_clip_plain else frames[:3]
+    t0 = time.time()
     with plain_versions():
         cuda_mc.reset_launches()
-        plain_stream = Encoder(params_fn(W, H)).encode(frames[:3])
+        plain_stream = Encoder(params_fn(W, H)).encode(plain_frames)
         if any(cuda_mc.launches.values()):
             fail(f"{phase}: the plain-version run launched a kernel")
-    if not stream.startswith(plain_stream):
+    t_plain = time.time() - t0
+    if whole_clip_plain:
+        if stream != plain_stream:
+            fail(f"{phase}: kernel stream != plain-version stream over the "
+                 f"whole clip ({len(stream)} vs {len(plain_stream)} bytes)")
+    elif not stream.startswith(plain_stream):
         fail(f"{phase}: kernel stream != plain-version stream")
-    n_p = types.count("P")
-    emit(phase, card=card, frames=len(frames), bytes=len(stream),
-         seconds=t_enc, fps=len(frames) / t_enc, stage_seconds=stages,
-         launches=launches, launches_per_p_frame={
-             k: v / n_p for k, v in launches.items()},
+    per_type = {f"launches_per_{t.lower()}_frame": {
+        k: v / types.count(t) for k, v in by_kind[t].items()}
+        for t in "PB" if types.count(t)}
+    per_type["launches_outside_pictures"] = {
+        k: v - sum(by_kind[t][k] for t in "PIB") for k, v in launches.items()}
+    emit(phase, card=card, frames=len(frames), types=types,
+         bytes=len(stream), seconds=t_enc, fps=len(frames) / t_enc,
+         stage_seconds=stages, launches=launches, **per_type,
          inter_cu_share_last_frame=inter_pct,
          kernel_stream_equals_plain_stream=True,
+         plain_frames=len(plain_frames), plain_seconds=t_plain,
          bits=[s["bits"] for s in enc.frame_stats], **extra)
     return launches
 
@@ -1125,11 +1309,22 @@ def main():
              bytes=len(stream), encode_seconds=t_enc,
              decoded_equals_recon=True,
              types="".join(s["type"] for s in enc.frame_stats), **extra)
+    # x265's default (medium, no tune, ABR): B frames, decoded back
+    frames = list(clip_crowd1080(416, 240, 11, seed=40))
+    enc, stream, t_enc = encode_and_decode(
+        "encode_small medium", medium_params(416, 240), frames)
+    types, vcl = check_b_structure("encode_small medium", enc, stream)
+    emit("encode_small", config="medium", frames=len(frames),
+         bytes=len(stream), encode_seconds=t_enc, decoded_equals_recon=True,
+         types=types, slice_nal_types=vcl,
+         frame_pocs=[s["poc"] for s in enc.frame_stats],
+         frame_qps=[s["qp"] for s in enc.frame_stats])
 
     # ---- golden streams: the card against the JAX package's digests
     golden_phase()
 
-    # ---- the main paths at 1080p, 8 frames each, through Encoder.encode
+    # ---- the main paths at 1080p through Encoder.encode: 8 frames each,
+    # and 11 (an I picture and two mini-GOPs) for bench.py's config 3
     launches_by_path = {}
     for phase, params_fn, frames, types, stages in (
             ("encode_1080p", slice_params, make_clip(W, H, 8, seed=11),
@@ -1139,13 +1334,18 @@ def main():
              ("loopfilter", "sao_analyze")),
             ("encode_1080p_live", live_params,
              make_cut_clip(W, H, 8, seed=11, cut=4), "IPPPIPPP",
-             ("lookahead", "rd_adopt", "rd_promote"))):
-        launches_by_path[phase] = main_path(phase, params_fn, frames, card,
-                                            types, stages)
+             ("lookahead", "rd_adopt", "rd_promote")),
+            ("encode_1080p_medium", medium_params,
+             list(clip_crowd1080(W, H, 11, seed=40)), None,
+             ("slicetype", "lookahead", "motion", "rd_adopt", "rd_promote",
+              "loopfilter", "finalize"))):
+        launches_by_path[phase] = main_path(
+            phase, params_fn, frames, card, types, stages,
+            whole_clip_plain=types is None)
 
-    # ---- the kernels' table (launches: this slice's path, the live one)
+    # ---- the kernels' table (launches: this slice's path, config 3)
     table, off_path = [], []
-    this_path = launches_by_path["encode_1080p_live"]
+    this_path = launches_by_path["encode_1080p_medium"]
     for name, r in rows.items():
         row = {
             "name": name, "route": "cuda", "source": META[name][0],
@@ -1168,7 +1368,7 @@ def main():
                                            "plain_ms", "cold_l2_ms",
                                            "library_ms") if k in sub},
                     **bounds(sub, cal)}
-        (off_path if name in OFF_PATH
+        (off_path if name in OFF_PATH["encode_1080p_medium"]
          else table).append(row)
     print(json.dumps({"kernels": table,
                       "entries_off_the_main_path": off_path,

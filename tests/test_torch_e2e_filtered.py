@@ -12,6 +12,7 @@ from x265_tpu_torch.api import params as TP
 from x265_tpu_torch.api.encoder import Encoder as TEncoder
 from x265_tpu_torch.decoder.decoder import HEVCDecoder
 from x265_tpu_torch.utils.testclip import make_ramp_clip
+import torch_port_util  # noqa: F401  (one torch thread)
 
 W, H = 200, 120
 

@@ -47,8 +47,8 @@ def test_reconfigure_bitrate_midstream():
     assert qps == [s["qp"] for s in jenc.frame_stats]
     assert enc.param.bitrate == 120 and enc.param.vbv_bufsize == 40
     assert_decodes_to_recon(stream, recons(), len(frames))
-    with pytest.raises(NotImplementedError, match="bframes"):
-        enc.reconfigure(bframes=2)
+    enc.reconfigure(bframes=2)            # B frames are ported
+    assert enc.bframes == 2
     with pytest.raises(ValueError):
         enc.reconfigure(ref=2)
 

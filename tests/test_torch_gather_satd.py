@@ -15,6 +15,7 @@ import torch
 import x265_tpu.engine.me as jme
 import x265_tpu_torch.engine.me as tme
 from x265_tpu_torch.ops import cuda_kernels, cuda_mc
+import torch_port_util  # noqa: F401  (one torch thread)
 
 S, MARGIN = 16, 6
 NBY, NBX = 4, 6

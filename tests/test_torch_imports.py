@@ -69,7 +69,7 @@ def _params(**kw):
 
 
 @pytest.mark.parametrize("name,kw", [
-    ("bframes", dict(bframes=2)), ("pass_num", dict(pass_num=2)),
+    ("nr_intra", dict(nr_intra=5)), ("pass_num", dict(pass_num=2)),
     ("zones", dict(zones="0,10,q=20")),
     ("hist_scenecut", dict(hist_scenecut=True)),
     ("qpfile", dict(qpfile="frames.txt")),
@@ -163,6 +163,30 @@ def test_lookahead_and_rd_entry_points_default_to_cuda():
                       (rd_intra_promote32, 4)):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn(*([None] * nargs))
+
+
+def test_bframe_entry_points_default_to_cuda():
+    """The B-frame entry points (the leaf-B batch's motion search and
+    intra analysis, the slice-type search) take device=None as CUDA and
+    raise before any work when there is no card."""
+    import numpy as np
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from x265_tpu_torch.engine.lookahead import (batched_pair_costs,
+                                                 slicetype_split)
+    from x265_tpu_torch.engine.me import motion_fused_frames
+    from x265_tpu_torch.models.intra_frame import (
+        submit_intra_analysis_batch)
+    y = np.zeros((64, 64), np.uint8)
+    low = np.zeros((32, 32), np.int32)
+    for call in (lambda: motion_fused_frames([y, y], [y, y], 64, 64,
+                                             do_bi=True),
+                 lambda: submit_intra_analysis_batch([y, y], 64, 64),
+                 lambda: batched_pair_costs([(low, low)]),
+                 lambda: slicetype_split(low, [low, low])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_chip_smoke_fails_without_a_card():

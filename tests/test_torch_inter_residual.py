@@ -156,13 +156,13 @@ def test_unported_inputs_raise():
     with pytest.raises(NotImplementedError):
         tir.build_inter_pre(fr[1], dec, ([ref_pad], []), 30, pt, None,
                             True, 1, device="cpu")          # rdoq
-    with pytest.raises(NotImplementedError):
-        tir.build_inter_pre(fr[1], dec, ([ref_pad], [ref_pad]), 30, pt,
-                            None, True, 0, device="cpu")    # list 1
-    dec.dir8[:] = 3
-    with pytest.raises(NotImplementedError):
+    # list 1 and bi lanes are ported (tests/test_torch_bframes.py); the
+    # explicit RQT level still raises
+    pt.tu_inter_depth = 2
+    with pytest.raises(NotImplementedError, match="RQT"):
         tir.build_inter_pre(fr[1], dec, ([ref_pad], []), 30, pt, None,
-                            True, 0, device="cpu")          # bi
+                            True, 0, device="cpu")          # rqt
+    pt.tu_inter_depth = 1
     dec.inter8[:] = False
     assert tir.build_inter_pre(fr[1], dec, ([ref_pad], []), 30, pt, None,
                                True, 0, device="cpu") is None

@@ -19,6 +19,7 @@ from x265_tpu.ops import pallas_kernels as jpk
 import x265_tpu_torch.models.inter_residual as tir
 import x265_tpu_torch.engine.me as tme
 from x265_tpu_torch.ops import cuda_kernels, cuda_mc
+import torch_port_util  # noqa: F401  (one torch thread)
 
 
 def T(a, dt=None):

@@ -17,6 +17,7 @@ import torch
 from x265_tpu.engine import me as jme
 from x265_tpu_torch.engine import me as tme
 from x265_tpu_torch.ops import cuda_kernels, cuda_mc
+import torch_port_util  # noqa: F401  (one torch thread)
 
 W_R = 7
 PAD = 20

@@ -13,6 +13,7 @@ import torch
 from x265_tpu.engine import lookahead as jla
 from x265_tpu_torch.engine import lookahead as tla
 from x265_tpu_torch.utils.testclip import make_cut_clip
+import torch_port_util  # noqa: F401  (one torch thread)
 
 
 def T(a):

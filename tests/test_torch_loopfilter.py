@@ -12,6 +12,7 @@ from x265_tpu_torch.hevc import sao as tsao
 from x265_tpu_torch.hevc.deblock import NOPOC, deblock_frame
 from x265_tpu_torch.models import loopfilter as tlf
 from x265_tpu_torch.utils import convert
+import torch_port_util  # noqa: F401  (one torch thread)
 
 
 def _state(rng, h, w, with_motion):

@@ -156,6 +156,9 @@ def test_dominant_tuples_same_as_reference():
 
 
 def test_bi_search_raises():
+    """The bi-prediction search averages the first two references' best
+    predictions: with one reference it refuses (tests/test_torch_bframes.py
+    holds the search itself against the JAX package)."""
     cur, ref = _pair(1)
-    with pytest.raises(NotImplementedError):
-        tme.motion_fused(cur, [ref, ref], W, H, do_bi=True, device="cpu")
+    with pytest.raises(ValueError, match="two references"):
+        tme.motion_fused(cur, [ref], W, H, do_bi=True, device="cpu")

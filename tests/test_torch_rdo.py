@@ -30,6 +30,7 @@ from x265_tpu_torch.hevc import rate_model as trm
 from x265_tpu_torch.models import intra_rdo as tir
 from x265_tpu_torch.models import rdo as trdo
 from x265_tpu_torch.utils.testclip import make_clip
+import torch_port_util  # noqa: F401  (one torch thread)
 
 W, H, PAD = 192, 128, 80
 COST_RTOL = 4e-7

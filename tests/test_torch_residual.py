@@ -7,6 +7,7 @@ import torch
 
 from x265_tpu.models import residual as jres
 from x265_tpu_torch.models import residual as tres
+import torch_port_util  # noqa: F401  (one torch thread)
 
 
 def T(a):

@@ -16,6 +16,7 @@ from x265_tpu.engine import me as jme
 from x265_tpu.ops import pallas_kernels as jpk
 from x265_tpu_torch.engine import me as tme
 from x265_tpu_torch.ops import cuda_kernels, cuda_mc
+import torch_port_util  # noqa: F401  (one torch thread)
 
 
 def T(a, dt=None):

@@ -10,6 +10,7 @@ from x265_tpu_torch.engine import planes as tplanes
 from x265_tpu_torch.engine import weightp as twp
 from x265_tpu_torch.utils import convert
 from x265_tpu_torch.utils.testclip import make_ramp_clip
+import torch_port_util  # noqa: F401  (one torch thread)
 
 W, H = 192, 128
 

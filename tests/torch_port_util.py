@@ -4,6 +4,13 @@ import hashlib
 import importlib
 
 import numpy as np
+import torch
+
+# The port's CPU tests run small tensors, which gain nothing from torch's
+# intra-op threads; under the tier-1 command's six workers the default (a
+# thread a core, each waiting in an OpenMP spin) oversubscribes the
+# machine several times over and slows every worker about sevenfold.
+torch.set_num_threads(1)
 
 
 def make_clip(w, h, n, seed=0, step=(2, 3)):

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Where one 1080p P frame of the PyTorch/CUDA port spends its time.
+"""Where one 1080p P frame (or one mini-GOP) of the PyTorch/CUDA port
+spends its time.
 
-    python3 tools/torch_profile_frame.py [--config ultrafast|filtered|live]
-                                         [--frames 6] [--out trace.json]
+    python3 tools/torch_profile_frame.py
+        [--config ultrafast|filtered|live|medium] [--frames N]
+        [--out trace.json]
 
-Needs a CUDA device. Encodes a seeded 1920x1080 clip in one of the three
+Needs a CUDA device. Encodes a seeded 1920x1080 clip in one of the four
 configurations chip_smoke.py drives (ultrafast + zerolatency; the
 filtered fast + zerolatency with its brightness ramp; the live medium +
 zerolatency under CRF 23 and a 6000 kbps VBV buffer, on the scene-cut
 clip with the cut at frame 4, so the last frame is a P frame of the new
-scene), lets the first frames warm everything up, then traces the LAST
-P frame with torch.profiler and prints one JSON object: the frame's wall
-time, the device's busy time and idle share inside it, the per-stage
-seconds (and the lookahead's share of the wall time), the device time of
-the hand-written kernels, and the kernels that took most of the
-device's time. With --out it also writes the Chrome trace.
+scene; x265's default medium at 4000 kbps ABR, bench.py's config 3, on
+its clip_crowd1080), lets the first frames warm everything up, then
+traces with torch.profiler the LAST P frame or, for medium, the second
+mini-GOP: the flush_step call that codes one P anchor and the B
+pictures before it (frames default 6, and 11 for medium: the I picture
+and ten queued pictures, two or more mini-GOPs). Prints one JSON object:
+the wall time, the device's busy time and idle share inside it, the
+per-stage seconds (and the lookahead's share of the wall time), the
+device time of the hand-written kernels, and the kernels that took most
+of the device's time. With --out it also writes the Chrome trace.
 """
 import argparse
 import json
@@ -39,27 +45,41 @@ OURS = ("mc_gather_kernel", "tile_gather_", "gather_satd_kernel",
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=("ultrafast", "filtered", "live"),
+    ap.add_argument("--config",
+                    choices=("ultrafast", "filtered", "live", "medium"),
                     default="ultrafast")
-    ap.add_argument("--frames", type=int, default=6)
+    ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     card = chip_smoke.smi()
     W, H = chip_smoke.W, chip_smoke.H
+    n = args.frames or (11 if args.config == "medium" else 6)
     if args.config == "filtered":
-        frames = chip_smoke.make_ramp_clip(W, H, args.frames, seed=11,
+        frames = chip_smoke.make_ramp_clip(W, H, n, seed=11,
                                            step=0.05)
         enc = Encoder(chip_smoke.filtered_params(W, H))
     elif args.config == "live":
-        frames = chip_smoke.make_cut_clip(W, H, args.frames, seed=11,
+        frames = chip_smoke.make_cut_clip(W, H, n, seed=11,
                                           cut=4)
         enc = Encoder(chip_smoke.live_params(W, H))
+    elif args.config == "medium":
+        frames = list(chip_smoke.clip_crowd1080(W, H, n, seed=40))
+        enc = Encoder(chip_smoke.medium_params(W, H))
     else:
-        frames = chip_smoke.make_clip(W, H, args.frames, seed=11)
+        frames = chip_smoke.make_clip(W, H, n, seed=11)
         enc = Encoder(chip_smoke.slice_params(W, H))
     enc.headers()
-    for f in frames[:-1]:
-        enc.encode_frame(*f)
+    if args.config == "medium":
+        # the I picture codes at once, the rest queue (b-adapt's window is
+        # rc-lookahead frames); the first mini-GOP warms up the B path
+        for f in frames:
+            enc.encode_frame(*f)
+        enc.flush_step()
+        step = enc.flush_step
+    else:
+        for f in frames[:-1]:
+            enc.encode_frame(*f)
+        step = lambda: enc.encode_frame(*frames[-1])  # noqa: E731
     torch.cuda.synchronize()
     profiling.reset()
     profiling.set_sync(True)
@@ -67,7 +87,8 @@ def main():
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        au = enc.encode_frame(*frames[-1])
+        done = len(enc.frame_stats)
+        au = step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     profiling.set_sync(False)
@@ -92,7 +113,8 @@ def main():
                 for k, v in profiling.report().items()}
     out = {
         "card": card, "config": args.config, "frame_bytes": len(au),
-        "frame_type": enc.frame_stats[-1]["type"],
+        "frame_type": "".join(st["type"] for st in enc.frame_stats[done:]),
+        "frame_pocs": [st["poc"] for st in enc.frame_stats[done:]],
         "frame_wall_ms": wall * 1e3, "stage_ms": stage_ms,
         "lookahead_share_of_wall": stage_ms.get("lookahead", 0.0)
         / (wall * 1e3),

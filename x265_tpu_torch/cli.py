@@ -8,12 +8,19 @@ Usage:
         --preset fast --tune zerolatency --qp 30 --scenecut 0 \
         [--no-deblock] [--no-sao] [--aq-mode N] [--aq-strength X]
         [--no-weightp]
+    python -m x265_tpu_torch.cli --input in.y4m --output out.hevc \
+        --preset medium --bitrate 4000 [--bframes N] [--b-adapt 0|2] \
+        [--b-pyramid | --no-b-pyramid] [--frame-threads N]
 
-Every other long option of x265 (--deblock, --sao, --aq-mode,
---aq-strength, --weightp and their --no- forms among them) goes through
-param_parse. Runs on the CUDA device unless --device says otherwise.
-Options outside the ported slices make the encoder raise
-NotImplementedError.
+The presets without a tune code B frames: --bframes sets the longest run
+of B pictures between two anchors, --b-adapt 2 places the anchors by the
+lowres slice-type search (0: fixed mini-GOPs), --b-pyramid codes the
+middle B of a run of three or more as a reference for the others, and
+--frame-threads is the number of B pictures in flight. Every other long
+option of x265 (--deblock, --sao, --aq-mode, --aq-strength, --weightp and
+their --no- forms among them) goes through param_parse. Runs on the
+CUDA device unless --device says otherwise. Options outside the ported
+slices make the encoder raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -121,11 +128,13 @@ def main(argv=None) -> int:
                      "CU8%, CU16%, CU32%, CU64%")
         csv.write(cols + "\n")
 
-    # --recon writes the recon pictures as Y4M (encode order equals
-    # display order: there are no B frames)
-    recon_frames = []
+    # --recon writes the recon pictures as Y4M in display order (B
+    # pictures finish out of order; a picture coded again under VBV
+    # reports twice, and the last report is the one in the stream)
+    recon_frames = {}
     if args.recon:
-        enc.recon_sink = lambda idx, planes: recon_frames.append(planes)
+        enc.recon_sink = lambda idx, planes: recon_frames.__setitem__(
+            idx, planes)
 
     shift = info.bit_depth - p.bit_depth       # >0: reduce input depth
 
@@ -176,7 +185,7 @@ def main(argv=None) -> int:
         csv.close()
     if args.recon:
         from x265_tpu_torch.io.y4m import write_y4m
-        write_y4m(args.recon, recon_frames,
+        write_y4m(args.recon, [recon_frames[i] for i in sorted(recon_frames)],
                   VideoInfo(p.width, p.height, p.fps_num, p.fps_den,
                             bit_depth=p.bit_depth))
     fps = nframes / el if el > 0 else 0.0

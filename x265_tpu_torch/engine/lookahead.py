@@ -10,10 +10,16 @@ The intra cost is the SATD kernel (engine.me.satd8_batched) of the
 DC-removed 8x8 blocks; the inter cost is the fused SAD sweep + argmin
 kernel (ops.cuda_kernels.sad_sweep_argmin) over the +-R integer window
 against the previous lowres plane, with no mv cost. Both are integer,
-so the costs and mvs equal the JAX package's exactly. The B-frame
-slicetype search (batched pair costs, slicetype_split) is not ported.
+so the costs and mvs equal the JAX package's exactly.
+
+The B-frame slice-type search (slicetype_split) costs pairs of lowres
+planes with the same two kernels at a wider window (R=8), then runs its
+dynamic program on the host in float64 over the block maps, summed with
+the reference's own numpy calls, so its sums are exact.
 """
 from __future__ import annotations
+
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -172,3 +178,138 @@ def cutree_propagate(records, ctb_log2: int, qcompress: float = 0.6,
     # FLOAT offsets: the encoder sums AQ + cuTree + ROI as doubles and
     # rounds once (x265 qpCuTreeOffset stays double, slicetype.cpp:712)
     return np.clip(ctb_off, -float(max_off), 0.0)
+
+
+def _batched_pair_fn(cur, ref):
+    """One (cur, ref) lowres pair -> its per-block min(icost, 2*mcost)
+    int32 map (slicetype.cpp estimateFrameCost). The JAX package vmaps
+    this over a padded batch of pairs; here it is one pair a call (one
+    SATD and one SAD-sweep launch)."""
+    # wider window than the per-frame sweep: anchors sit up to bframes
+    # frames away, so accumulated motion exceeds R=4
+    ic, mc, _ = _lowres_costs(cur, ref, R=8)
+    return torch.minimum(ic, mc * 2).to(torch.int32)
+
+
+# pair-cost memo across slicetype_split calls: the b-adapt window SLIDES
+# one mini-GOP at a time, so ~3/4 of each window's (cur, ref) pairs were
+# already costed last call. Keyed by plane identity with the planes
+# pinned (a recycled id cannot alias a dead frame).
+_PAIR_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
+_BCOST_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
+_PAIR_CACHE_MAX = 512
+
+
+def _as_low(a, device):
+    """A lowres plane as a device tensor (the encoder's already are)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+
+def batched_pair_costs(pairs, device=None):
+    """pairs: list of (cur_low, ref_low) planes of one shape (device
+    tensors or numpy). Returns the per-pair min(icost, 2*mcost) block maps
+    as host int32 arrays. Only pairs not in the sliding-window memo are
+    costed."""
+    if not pairs:
+        return []
+    device = resolve_device(device)
+    out = [None] * len(pairs)
+    for i, (cur, ref) in enumerate(pairs):
+        key = (id(cur), id(ref))
+        ent = _PAIR_CACHE.get(key)
+        if ent is not None and ent[0] is cur and ent[1] is ref:
+            _PAIR_CACHE.move_to_end(key)
+            out[i] = ent[2]
+            continue
+        blk = _batched_pair_fn(_as_low(cur, device),
+                               _as_low(ref, device)).cpu().numpy()
+        out[i] = blk
+        _PAIR_CACHE[key] = (cur, ref, blk)
+    while len(_PAIR_CACHE) > _PAIR_CACHE_MAX:
+        _PAIR_CACHE.popitem(last=False)
+    return out
+
+
+def slicetype_split(anchor_low, queue_lows, max_bs=4,
+                    b_discount=0.9, device=None):
+    """Windowed slice-type decision (x264/x265 b-adapt 2 slicetypePath
+    analog, slicetype.cpp): dynamic program over anchor placements in the
+    lookahead window. Every path covers the same frames, so raw lowres
+    SATD sums compare directly; B frames get a small discount for the
+    bi-average prediction gain the single-ref lowres sweep cannot see.
+    Returns the queue index of the FIRST anchor on the best path (the
+    window re-optimises as it slides, like the reference). The block maps
+    come to the host and are summed there in float64 with the
+    reference's numpy calls, so every sum is the reference's exactly."""
+    n = len(queue_lows)
+    if n <= 1:
+        return 0
+    lows = [anchor_low] + list(queue_lows)   # lows[i+1] == queue[i]
+    maxlen = max_bs + 1                      # frames per mini-GOP
+    pairs = []
+    idx = {}
+
+    def want(cur, ref):
+        key = (cur, ref)
+        if key not in idx:
+            idx[key] = len(pairs)
+            pairs.append((lows[cur], lows[ref]))
+
+    for a in range(0, n):                    # a = previous anchor position
+        for m in range(a + 1, min(a + maxlen, n) + 1):
+            want(m, a)                       # fwd: frame m from anchor a
+    for j in range(2, n + 1):                # j = next anchor position
+        for m in range(max(1, j - max_bs), j):
+            want(m, j)                       # bwd: frame m from anchor j
+    costs = batched_pair_costs(pairs, device)
+
+    def blk(cur, ref):
+        return costs[idx[(cur, ref)]]
+
+    sums = {}
+
+    def psum(cur, ref):
+        key = (cur, ref)
+        if key not in sums:
+            sums[key] = float(blk(cur, ref).sum())
+        return sums[key]
+
+    def bcost(m, a, j):
+        """Per-block B estimate: best of fwd, bwd and the bi average
+        (averaging two decent predictions beats either — the
+        0.72 factor is the noise-variance gain of the mean)."""
+        f = blk(m, a)
+        b = blk(m, j)
+        key = (id(f), id(b))
+        ent = _BCOST_CACHE.get(key)
+        if ent is not None and ent[0] is f and ent[1] is b:
+            _BCOST_CACHE.move_to_end(key)
+            return ent[2]
+        ff = f.astype(np.float64)
+        bb = b.astype(np.float64)
+        v = float(np.minimum(np.minimum(ff, bb), 0.36 * (ff + bb)).sum())
+        _BCOST_CACHE[key] = (f, b, v)
+        while len(_BCOST_CACHE) > _PAIR_CACHE_MAX:
+            _BCOST_CACHE.popitem(last=False)
+        return v
+
+    INF = float("inf")
+    dp = [INF] * (n + 1)
+    dp[0] = 0.0
+    prev = [0] * (n + 1)
+    for j in range(1, n + 1):
+        for a in range(max(0, j - maxlen), j):
+            if dp[a] == INF:
+                continue
+            total = dp[a] + psum(j, a)               # the anchor's P cost
+            for m in range(a + 1, j):                # its B frames
+                total += b_discount * bcost(m, a, j)
+            if total < dp[j]:
+                dp[j] = total
+                prev[j] = a
+    j = n
+    while prev[j] != 0:
+        j = prev[j]
+    return j - 1

@@ -219,6 +219,33 @@ def _eval_fixed(cur_blocks, planes, mv, bxy, S, margin):
     return _phase_satd(cur_blocks, planes, fy, fx, iy, ix, S)
 
 
+def _bi_satd(cur_blocks, planes0, planes1, mv0, mv1, bxy, S, margin):
+    """SATD of the averaged bi-prediction per block (x265 checkBidir2Nx2N
+    analog, analysis.cpp:3145): pixel-domain average of the two
+    phase-plane predictions. Two launches of the gather's blocks entry,
+    the average, then the SATD kernel."""
+    def gather(planes, mv):
+        fx = mv[:, 0] & 3
+        fy = mv[:, 1] & 3
+        ix = (mv[:, 0] >> 2) + bxy[:, 0] * S + margin
+        iy = (mv[:, 1] >> 2) + bxy[:, 1] * S + margin
+        return _gather_phase_blocks(planes, fy, fx, iy, ix, S)
+
+    avg = (gather(planes0, mv0) + gather(planes1, mv1) + 1) >> 1
+    return satd8_batched(cur_blocks, avg)
+
+
+def mv_field_median3(mv: np.ndarray) -> np.ndarray:
+    """Per-component 3x3 median of an MV field [nby,nbx,2] (edge-padded)
+    — the decision-stage MV predictor (stands in for AMVP, which is only
+    defined during the coding walk; x265 motion.cpp uses the real MVP).
+    Host numpy, as the reference computes it."""
+    p = np.pad(mv, ((1, 1), (1, 1), (0, 0)), mode="edge")
+    stack = np.stack([p[dy:dy + mv.shape[0], dx:dx + mv.shape[1]]
+                      for dy in range(3) for dx in range(3)])
+    return np.median(stack, axis=0).astype(np.int32)
+
+
 def _edge_pad(a: torch.Tensor, p: int) -> torch.Tensor:
     """Edge-pad the two leading axes of a [H, W, ...] tensor by p."""
     H, W = a.shape[:2]
@@ -266,10 +293,11 @@ def _motion_fused(cur, refs_big, lam, S, R, subme, bd, do_bi,
     """cur [H,W] (padded to S multiples); refs_big [nref, H+2P, W+2P]
     edge-padded by P = R+6. Returns (mv [nref,nby,nbx,2] qpel,
     cost [nref,nby,nbx] satd+lam*mvpbits, satd [nref,nby,nbx],
-    bi_satd [nby,nbx] (zeros: bi-prediction is not ported yet))."""
-    if do_bi:
-        raise NotImplementedError("bi-prediction search is not ported yet")
+    bi_satd [nby,nbx] (zeros unless do_bi: then the SATD of the average
+    of the first two references' predictions))."""
     nref = refs_big.shape[0]
+    if do_bi and nref < 2:
+        raise ValueError("the bi-prediction search needs two references")
     H, W = cur.shape
     nby, nbx = H // S, W // S
     N = nby * nbx
@@ -366,7 +394,7 @@ def _motion_fused(cur, refs_big, lam, S, R, subme, bd, do_bi,
         cost_out = satd_out.to(torch.float32) + lam * bits
         return mv_out, cost_out.reshape(nby, nbx), satd_out.reshape(nby, nbx)
 
-    mvs, costs, satds = [], [], []
+    mvs, costs, satds, planes = [], [], [], []
     for r in range(nref):
         ref_S = refs_big[r, P - margin - 3:P + H + margin + 4,
                          P - margin - 3:P + W + margin + 4]
@@ -375,7 +403,14 @@ def _motion_fused(cur, refs_big, lam, S, R, subme, bd, do_bi,
         mvs.append(m)
         costs.append(c)
         satds.append(s)
-    bi = torch.zeros((nby, nbx), dtype=torch.int32, device=dev)
+        if do_bi and r < 2:
+            planes.append(planes_r)
+    if do_bi:
+        bi = _bi_satd(cur_blocks, planes[0], planes[1],
+                      mvs[0].reshape(N, 2), mvs[1].reshape(N, 2), bxy, S,
+                      margin).reshape(nby, nbx)
+    else:
+        bi = torch.zeros((nby, nbx), dtype=torch.int32, device=dev)
     return torch.stack(mvs), torch.stack(costs), torch.stack(satds), bi
 
 
@@ -412,6 +447,41 @@ def motion_fused(cur_y, ref_ys, width, height, S=16, R=57, qp=32,
         float(slack), bool(force_dense))
     return (mv.cpu().numpy(), cost.cpu().numpy(), satd.cpu().numpy(),
             bi.cpu().numpy())
+
+
+def motion_fused_frames(cur_list, ref_ys, width, height, S=16, R=57,
+                        qps=None, subme=2, bit_depth=8, do_bi=False,
+                        slack=24.0, force_dense=False, device=None):
+    """Motion search for SEVERAL frames against the same reference set
+    (the mini-GOP's leaf Bs all predict from the same two anchors). The
+    JAX package batches the frames on one axis; here each frame is one
+    _motion_fused call at that frame's lambda, which the reference forms
+    in float32 throughout (not rounded once from float64 as
+    motion_fused does).
+
+    Returns per-frame tuples [(mv, cost, satd, bi)], numpy.
+    """
+    device = resolve_device(device)
+    K = len(cur_list)
+    ph = -(-height // S) * S
+    pw = -(-width // S) * S
+    P = R + 6
+    refs = torch.stack([_me_ref_upload(r, P, ph, pw, height, width, device)
+                        for r in ref_ys])
+    if qps is None:
+        qps = [32] * K
+    lams = np.sqrt(
+        0.85 * 2.0 ** ((np.asarray(qps, np.float32) - 12) / 3.0)
+    ).astype(np.float32)
+    out = []
+    for k in range(K):
+        cur = _cur_upload(cur_list[k], bit_depth, ph, pw, device)
+        mv, cost, satd, bi = _motion_fused(
+            cur, refs, lams[k], S, R, max(1, subme), bit_depth, do_bi,
+            float(slack), bool(force_dense))
+        out.append((mv.cpu().numpy(), cost.cpu().numpy(),
+                    satd.cpu().numpy(), bi.cpu().numpy()))
+    return out
 
 
 def _me_ref_upload(r, P, ph, pw, height, width, device):

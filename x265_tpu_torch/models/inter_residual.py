@@ -17,9 +17,9 @@ Bit-exactness notes: the 8/4-tap MC uses the same "tap-0 == 64" algebra
 as mc_14 (slice_writer.cpp:491) — the generic separable path equals every
 xf/yf special case exactly because 64 = 2^6 divides the stage shifts.
 
-Ported so far: uni-directional prediction from list 0, with or without
-explicit weights, TU == CU (64x64 CUs as four 32x32 quadrants).
-Bi-prediction, RDOQ, scaling lists and the explicit RQT level raise.
+Ported so far: uni-directional prediction from list 0 (with or without
+explicit weights) or list 1, bi-prediction, TU == CU (64x64 CUs as four
+32x32 quadrants). RDOQ, scaling lists and the explicit RQT level raise.
 """
 from __future__ import annotations
 
@@ -111,11 +111,11 @@ def _inter_class_body(src_y, src_cb, src_cr,
                       rqt=False, rate_kk=None):
     """One CU-size class of inter CUs: MC + residual chain, all planes.
 
-    xy [N,2] luma top-left; mv [N,2,2] (list, x/y) qpel; dirm [N] (all
-    1: list 0 only); ref_i [N] L0 ref; qp [N] slice/CTB QpY (pre bd
-    offset); wp [4,3,3] int32 (flag, weight, offset) explicit L0 weights
+    xy [N,2] luma top-left; mv [N,2,2] (list, x/y) qpel; dirm [N] 1/2/3
+    (L0, L1, bi); ref_i [N] L0 ref; qp [N] slice/CTB QpY (pre bd
+    offset); r1* the list-1 stacks (one reference) or None when list 1 is
+    empty; wp [4,3,3] int32 (flag, weight, offset) explicit L0 weights
     per reference and plane, or None; wld/wcd their log2 denominators.
-    The r1* arguments keep the JAX signature: prediction is from list 0.
     Returns (lvl_y [N,n,n], lvl_cb, lvl_cr [N,n/2,n/2], cbf [N,3] or
     [N,4,3], rec_y [N,n,n], rec_cb, rec_cr, tusplit [N]).
     """
@@ -128,35 +128,63 @@ def _inter_class_body(src_y, src_cb, src_cr,
     x0 = xy[:, 0]
     y0 = xy[:, 1]
 
-    def pred_plane(pl, planes0, size, fb, taps, filt, padc):
+    use0 = (dirm & 1) > 0
+    use1 = (dirm & 2) > 0
+    lanes0 = torch.nonzero(use0).reshape(-1)
+    lanes1 = torch.nonzero(use1).reshape(-1)
+
+    def pred_plane(pl, planes0, planes1, size, fb, taps, filt, padc):
         xx = x0 if pl == 0 else x0 >> 1
         yy = y0 if pl == 0 else y0 >> 1
-        p14 = _mc_gather(planes0, ref_i, xx, yy, mv[:, 0, 0], mv[:, 0, 1],
-                         filt, fb, size, taps, padc, bd)
+
+        def mc(planes, lanes, ridx, lst):
+            """The 14-bit prediction from one list for the lanes that use
+            it; zero elsewhere (those lanes never read it)."""
+            out = torch.zeros((N, size, size), dtype=torch.int32,
+                              device=dev)
+            if planes is not None and lanes.numel():
+                out[lanes] = _mc_gather(
+                    planes, ridx[lanes], xx[lanes], yy[lanes],
+                    mv[lanes, lst, 0], mv[lanes, lst, 1], filt, fb, size,
+                    taps, padc, bd)
+            return out
+
+        p0 = mc(planes0, lanes0, ref_i, 0)
+        # list 1 holds one reference: ridx 0 (the reference gathers a
+        # list-1 prediction for every lane; only the lanes using it
+        # differ from zero)
+        p1 = mc(planes1, lanes1, torch.zeros_like(ref_i), 1)
+        # bi: (p0 + p1 + off) >> (15 - bd)
+        shift_bi = 15 - bd
+        bi = ((p0 + p1 + (1 << (shift_bi - 1))) >> shift_bi).clamp_(0, maxv)
+        # uni from the used list
+        p14 = torch.where(use0[:, None, None], p0, p1)
         shift_u = 14 - bd
         uni = ((p14 + (1 << (shift_u - 1))) >> shift_u).clamp_(0, maxv)
-        if wp is None:
-            return uni
-        # explicit weighted uni (L0 only, 8.5.4.2.3.2). int32 holds the
-        # product: |p14| < 2^15 and |weight| < 2^8; >> is arithmetic
-        we = wp[ref_i.long(), pl]                      # [N,3] flag,w,off
-        wflag = we[:, 0] > 0
-        denom = wld if pl == 0 else wcd                # one per slice
-        log2wd = denom + 14 - bd
-        o = (we[:, 2] << (bd - 8))[:, None, None]
-        wgt = we[:, 1][:, None, None]
-        if log2wd >= 1:
-            wv = (p14 * wgt + (1 << (log2wd - 1))) >> log2wd
-        else:
-            wv = p14 * wgt
-        wuni = (wv + o).clamp_(0, maxv)
-        return torch.where(wflag[:, None, None], wuni, uni)
+        if wp is not None:
+            # explicit weighted uni (L0 uni lanes only, 8.5.4.2.3.2).
+            # int32 holds the product: |p14| < 2^15 and |weight| < 2^8;
+            # >> is arithmetic
+            we = wp[torch.where(use0, ref_i, 0).long(), pl]  # flag,w,off
+            wflag = (we[:, 0] > 0) & use0 & ~use1
+            denom = wld if pl == 0 else wcd                # one per slice
+            log2wd = denom + 14 - bd
+            o = (we[:, 2] << (bd - 8))[:, None, None]
+            wgt = we[:, 1][:, None, None]
+            if log2wd >= 1:
+                wv = (p14 * wgt + (1 << (log2wd - 1))) >> log2wd
+            else:
+                wv = p14 * wgt
+            wuni = (wv + o).clamp_(0, maxv)
+            uni = torch.where(wflag[:, None, None], wuni, uni)
+        return torch.where((dirm == 3)[:, None, None], bi, uni)
 
-    pred_y = pred_plane(0, r0y, n, 2, 8, _const_dev("luma", str(dev)), pad)
-    pred_cb = pred_plane(1, r0cb, hs, 3, 4, _const_dev("chroma", str(dev)),
-                         pad >> 1)
-    pred_cr = pred_plane(2, r0cr, hs, 3, 4, _const_dev("chroma", str(dev)),
-                         pad >> 1)
+    pred_y = pred_plane(0, r0y, r1y, n, 2, 8, _const_dev("luma", str(dev)),
+                        pad)
+    pred_cb = pred_plane(1, r0cb, r1cb, hs, 3, 4,
+                         _const_dev("chroma", str(dev)), pad >> 1)
+    pred_cr = pred_plane(2, r0cr, r1cr, hs, 3, 4,
+                         _const_dev("chroma", str(dev)), pad >> 1)
 
     def block_src(plane, size):
         xx = x0 if plane == 0 else x0 >> 1
@@ -310,16 +338,14 @@ def build_inter_pre(src, decisions, refs_padded, qp_slice, p, wp_native,
         return None
     if rdoq_level > 0 and not p.lossless:
         raise NotImplementedError("RDOQ is not ported yet")
-    if refs_padded[1]:
-        raise NotImplementedError("list-1 references are not ported yet")
-    if np.any(decisions.dir8[decisions.inter8.astype(bool)] != 1):
-        raise NotImplementedError("bi/L1 prediction is not ported yet")
     h, w = src[0].shape
     h8, w8 = decisions.cu_log2_map.shape
     bd = p.bit_depth
     pad = 80
 
     def stack_refs(lst, plane):
+        if not lst:
+            return None             # list 1 of a P slice: never read
         def one(r):
             if isinstance(r, FramePlanes):
                 # device-resident anchor: padded ON DEVICE
@@ -335,6 +361,9 @@ def build_inter_pre(src, decisions, refs_padded, qp_slice, p, wp_native,
     r0y = stack_refs(refs_padded[0], 0)
     r0cb = stack_refs(refs_padded[0], 1)
     r0cr = stack_refs(refs_padded[0], 2)
+    r1y = stack_refs(refs_padded[1], 0)
+    r1cb = stack_refs(refs_padded[1], 1)
+    r1cr = stack_refs(refs_padded[1], 2)
     sy = devcache.src_plane(src[0], bd, device)
     scb = devcache.src_plane(src[1], bd, device)
     scr = devcache.src_plane(src[2], bd, device)
@@ -391,7 +420,7 @@ def build_inter_pre(src, decisions, refs_padded, qp_slice, p, wp_native,
     rqt = bool(getattr(p, "tu_inter_depth", 1) >= 2
                and not p.lossless and not p.tskip)
     pouts = _inter_multi_planes(
-        sy, scb, scr, r0y, r0cb, r0cr, None, None, None,
+        sy, scb, scr, r0y, r0cb, r0cr, r1y, r1cb, r1cr,
         tuple(c[1] for c in classes), wp_arr, tuple(c[0] for c in classes),
         bd, bool(sdh), False, bool(p.lossless), pad, wld, wcd,
         int(p.cb_qp_offset), int(p.cr_qp_offset),

@@ -147,6 +147,40 @@ def frame_intra_analysis(y: torch.Tensor, S: int = 16,
     return best.to(torch.int32), cost.amin(dim=1)
 
 
+def _batched_analysis(S: int, fast: bool = False, psy: float = 0.0):
+    """The analysis of a stack of frames [K, H, W] -> (modes [K, nB],
+    costs [K, nB]). The JAX package vmaps one compiled graph over the
+    frames; eager PyTorch has no compile to share, so this is one
+    frame_intra_analysis per frame."""
+    def run(ys):
+        outs = [frame_intra_analysis(y, S=S, fast=fast, psy=psy) for y in ys]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
+    return run
+
+
+def submit_intra_analysis_batch(srcs, width: int, height: int,
+                                cu_log2: int = 4, fast: bool = False,
+                                psy: float = 0.0, device=None):
+    """The analysis of a whole batch of frames (the leaf B pictures of a
+    mini-GOP); returns one submit_intra_analysis handle per frame."""
+    from x265_tpu_torch.engine.planes import pad_dev
+    from x265_tpu_torch.utils import devcache
+    device = resolve_device(device)
+    S = 1 << cu_log2
+    ph = -(-height // S) * S
+    pw = -(-width // S) * S
+    ys = []
+    for s_ in srcs:
+        arr = np.asarray(s_)
+        bd = 8 if arr.dtype == np.uint8 else 10
+        ys.append(pad_dev(devcache.src_plane(arr, bd, device),
+                          (0, ph - height, 0, pw - width)))
+    modes_dev, cost_dev = _batched_analysis(S, fast, float(psy))(ys)
+    return [(modes_dev[i], cost_dev[i], cu_log2, width, height)
+            for i in range(len(srcs))]
+
+
 def submit_intra_analysis(src_y: np.ndarray, width: int, height: int,
                           cu_log2: int = 4, fast: bool = False,
                           psy: float = 0.0, device=None):

@@ -81,6 +81,81 @@ def make_cut_clip(w, h, n, seed, cut):
     return frames
 
 
+# ---- bench.py's 1080p clip ----------------------------------------------
+# A copy of tools/make_clips.py's clip_crowd1080 and its helpers: that file
+# writes Y4M through the JAX package and so imports jax, which a machine
+# with only the port does not have. Same seeds, same pictures.
+
+def _upsample_bilinear(a: np.ndarray, H: int, W: int) -> np.ndarray:
+    """Bilinear resize [h,w] -> [H,W] (edge-clamped)."""
+    h, w = a.shape
+    ys = np.linspace(0, h - 1, H)
+    xs = np.linspace(0, w - 1, W)
+    y0 = np.clip(ys.astype(int), 0, h - 2)
+    x0 = np.clip(xs.astype(int), 0, w - 2)
+    fy = (ys - y0)[:, None]
+    fx = (xs - x0)[None, :]
+    a00 = a[y0][:, x0]
+    a01 = a[y0][:, x0 + 1]
+    a10 = a[y0 + 1][:, x0]
+    a11 = a[y0 + 1][:, x0 + 1]
+    return (a00 * (1 - fy) * (1 - fx) + a01 * (1 - fy) * fx
+            + a10 * fy * (1 - fx) + a11 * fy * fx)
+
+
+def value_noise(rng, H: int, W: int, octaves=(8, 16, 32, 64, 128),
+                gains=(1.0, 0.6, 0.35, 0.2, 0.12)) -> np.ndarray:
+    """Multi-octave value noise in [0,1] with a natural-ish spectrum."""
+    out = np.zeros((H, W))
+    for cells, g in zip(octaves, gains):
+        grid = rng.standard_normal((cells, int(cells * W / H) + 2))
+        out += g * _upsample_bilinear(grid, H, W)
+    out -= out.min()
+    out /= max(1e-9, out.max())
+    return out
+
+
+def _sample(master: np.ndarray, oy: float, ox: float,
+            H: int, W: int) -> np.ndarray:
+    """Bilinear subpixel crop [H,W] at float offset (oy, ox)."""
+    y0 = int(np.floor(oy))
+    x0 = int(np.floor(ox))
+    fy = oy - y0
+    fx = ox - x0
+    win = master[y0:y0 + H + 1, x0:x0 + W + 1]
+    return (win[:H, :W] * (1 - fy) * (1 - fx)
+            + win[:H, 1:W + 1] * (1 - fy) * fx
+            + win[1:H + 1, :W] * fy * (1 - fx)
+            + win[1:H + 1, 1:W + 1] * fy * fx)
+
+
+def _to420(yf: np.ndarray, cbf: np.ndarray, crf: np.ndarray):
+    y = np.clip(yf, 0, 255).astype(np.uint8)
+    cb = np.clip(cbf, 0, 255)
+    cr = np.clip(crf, 0, 255)
+    cb = cb.reshape(cb.shape[0] // 2, 2, cb.shape[1] // 2, 2).mean((1, 3))
+    cr = cr.reshape(cr.shape[0] // 2, 2, cr.shape[1] // 2, 2).mean((1, 3))
+    return y, cb.astype(np.uint8), cr.astype(np.uint8)
+
+
+def clip_crowd1080(W=1920, H=1080, n=32, seed=40):
+    """High-detail texture with mild pan — bench.py's 1080p fps clip
+    (a generator of (y, cb, cr) frames)."""
+    rng = np.random.default_rng(seed)
+    MH, MW = H + 100, W + 100
+    master_y = value_noise(rng, MH, MW,
+                           (12, 24, 48, 96, 192),
+                           (1.0, 0.6, 0.4, 0.25, 0.15)) * 210 + 22
+    master_cb = value_noise(rng, MH, MW, (10, 40), (1.0, 0.5)) * 85 + 85
+    master_cr = value_noise(rng, MH, MW, (16, 36), (1.0, 0.5)) * 85 + 85
+    for i in range(n):
+        oy, ox = 8 + 0.7 * i, 8 + 1.9 * i
+        yf = _sample(master_y, oy, ox, H, W)
+        cbf = _sample(master_cb, oy, ox, H, W)
+        crf = _sample(master_cr, oy, ox, H, W)
+        yield _to420(yf, cbf, crf)
+
+
 # ---- golden streams -------------------------------------------------------
 # Small seeded encodes whose stream digests (SHA-256 of the JAX package's
 # stream, which the port reproduces byte for byte on the CPU) are kept in
@@ -111,15 +186,26 @@ GOLDEN_CASES = {
         "fast", "zerolatency",
         {"bitrate": "200", "vbv-maxrate": "200", "vbv-bufsize": "40"},
         "make_clip", 1),
+    # B frames (no tune): fixed mini-GOPs of 4 (b-adapt 0, rd 2, the
+    # pyramid, weightp on the P anchors); then b-adapt 2 with rd 3 and a
+    # scene cut late enough for min-keyint (a CRA with RASL leading
+    # pictures); then bench.py config 3's rate control scaled to the size
+    "fast_crf": ("fast", None, {"crf": "28"}, "make_clip", 2),
+    "medium_crf_cut": ("medium", None, {"crf": "28"}, "make_cut_clip", 2),
+    "medium_abr": ("medium", None, {"bitrate": "100"}, "make_clip", 3),
 }
 GOLDEN_SIZE = (192, 128, 5)          # width, height, frames
 GOLDEN_CUT = 3                       # the scene cut of make_cut_clip cases
+# cases of their own length (two mini-GOPs of B frames) and scene cut
+GOLDEN_FRAMES = {"fast_crf": (11, None), "medium_crf_cut": (11, 7),
+                 "medium_abr": (11, None)}
 
 
 def golden_clip(name):
     w, h, n = GOLDEN_SIZE
+    n, cut = GOLDEN_FRAMES.get(name, (n, GOLDEN_CUT))
     maker = {"make_clip": make_clip, "make_ramp_clip": make_ramp_clip,
-             "make_cut_clip": lambda *a: make_cut_clip(*a, cut=GOLDEN_CUT)}
+             "make_cut_clip": lambda *a: make_cut_clip(*a, cut=cut)}
     return maker[GOLDEN_CASES[name][3]](w, h, n, GOLDEN_CASES[name][4])
 
 
