@@ -8,16 +8,19 @@ Builds every kernel from the sources in this checkout, holds each against
 its plain PyTorch version on the card (exact equality: they are integer
 kernels), also at the lookahead's shapes, encodes small clips, decodes
 them back and compares the streams of the golden cases with the committed
-digests, then drives the four main paths at 1920x1080 through
-Encoder.encode — the low-latency I/P encode (ultrafast + zerolatency), the
+digests, then drives the main paths through Encoder.encode — at
+1920x1080 the low-latency I/P encode (ultrafast + zerolatency), the
 filtered one (fast + zerolatency: deblock, SAO, AQ, weightp, 3 refs), the
 live one (medium + zerolatency under CRF 23 and a 6000 kbps VBV buffer:
-the lookahead, scenecut, cuTree and rd 3, on a clip with a scene cut) and
+the lookahead, scenecut, cuTree and rd 3, on a clip with a scene cut),
 x265's default, bench.py's config 3 (medium without a tune at 4000 kbps
 ABR, 25 fps: B frames placed by b-adapt 2, the B-pyramid, bi-prediction)
-— and checks that each went through every kernel of its path. One JSON
-line per phase; any failure ends the run with a non-zero exit code and no
-result line.
+and x265's slow preset under the same rate control (RDOQ, rd 4, the
+explicit inter RQT, the dense star search over four references); at
+1280x720 bench.py's config 1 (all-intra lossless, the pipelined path),
+decoded back to the source itself — and checks that each went through
+every kernel of its path. One JSON line per phase; any failure ends the
+run with a non-zero exit code and no result line.
 """
 import contextlib
 import ctypes
@@ -39,13 +42,14 @@ from x265_tpu_torch.api import params as api_params
 from x265_tpu_torch.api.params import param_default_preset, param_parse
 from x265_tpu_torch.decoder.decoder import HEVCDecoder
 from x265_tpu_torch.engine import lookahead, me
-from x265_tpu_torch.models import inter_residual
+from x265_tpu_torch.models import inter_residual, intra_frame
 from x265_tpu_torch.ops import cuda_build, cuda_kernels, cuda_mc
 from x265_tpu_torch.hevc.bitstream import NAL_TRAIL_R, split_annexb
 from x265_tpu_torch.utils import devcache, profiling, testclip
 from x265_tpu_torch.utils.convert import interp_filters
-from x265_tpu_torch.utils.testclip import (clip_crowd1080, make_clip,
-                                            make_cut_clip, make_ramp_clip)
+from x265_tpu_torch.utils.testclip import (clip_crowd1080, clip_pan,
+                                            make_clip, make_cut_clip,
+                                            make_ramp_clip)
 from x265_tpu_torch import native
 
 DEV = torch.device("cuda")
@@ -204,6 +208,29 @@ def medium_params(w, h):
     param_parse(p, "bitrate", "4000")
     p.width, p.height = w, h
     p.fps_num, p.fps_den = 25, 1
+    return p
+
+
+def slow_params(w, h):
+    """x265's slow preset under bench.py config 3's rate control (ABR at
+    4000 kbps, 25 fps): rdoq-level 2 (psy-RDOQ), rd 4, tu-inter-depth 2,
+    me star (the dense integer search, merange 57), subme 3, ref 4,
+    bframes 4, b-adapt 2, rc-lookahead 25, deblock, sao, aq-mode 2,
+    cu-tree, weightp."""
+    p = param_default_preset("slow")
+    param_parse(p, "bitrate", "4000")
+    p.width, p.height = w, h
+    p.fps_num, p.fps_den = 25, 1
+    return p
+
+
+def lossless_params(w, h):
+    """bench.py config 1 exactly: ultrafast, lossless, keyint 1 (every
+    picture an IDR through the all-intra pipelined path)."""
+    p = param_default_preset("ultrafast")
+    param_parse(p, "lossless")
+    param_parse(p, "keyint", "1")
+    p.width, p.height = w, h
     return p
 
 
@@ -977,6 +1004,32 @@ def kernel_phase():
         bytes=(cur.numel() + ref.numel()) * 2 + n * n * 4 + nb * 8,
         ops=3 * n * n * h * w + 2 * n * n * nb)
 
+    # the slow preset's dense integer search (--me star): the whole
+    # 1088x1920 picture at S=16, R=57 (n = 115: fourteen runs of eight dy
+    # and one at 107) against the crop of a reference padded by R+6,
+    # with the encoder's mv cost; on flat content with zero cost the first
+    # displacement, d = 0, must win
+    h, w, S, R = 1088, W, 16, 57
+    sweep_case("dense flat, mvcost=0", 64, 96, S, R, flat=True,
+               zero_cost=True)
+    cur, ref, mvc, n, _e1, e2 = sweep_case("dense 1088x1920", h, w, S, R)
+    nb = (h // S) * (w // S)
+    rows["sad_sweep_argmin"]["dense"] = dict(
+        shape=f"cur[{h},{w}] ref_pad[{h + 2 * R},{w + 2 * R}] i16 S=16 "
+              f"R=57 mvcost[{n * n}] f32 (a crop of the reference padded "
+              f"by R+6 to [{h + 2 * R + 12},{w + 2 * R + 12}])",
+        max_abs_err=e2,
+        ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R),
+                   5),
+        cold_l2_ms=time_cold_ms(
+            lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R), 5),
+        plain_ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin_plain(
+            cur, ref, mvc, S, R), 1),
+        diffs=n * n * h * w,
+        bytes=(cur.numel() + ref.numel()) * 2 + n * n * 4 + nb * 8,
+        ops=3 * n * n * h * w + 2 * n * n * nb)
+    del cur, ref
+
     # --- sad_local_argmin: the window search around the HME centres ------
     local_edge_cases(rng)
     rows["sad_local_argmin"] = local_main_case(rng)
@@ -1008,15 +1061,19 @@ META = {
 # instead); tile_gather_planes, the blocks entry of kernel 3, serves
 # me._bi_satd, which only B pictures run
 LOW_LATENCY_OFF_PATH = ("sad_sweep", "tile_gather_planes")
+# the dense search of the slow preset replaces the two-level search, so
+# its path never runs the window entry
 OFF_PATH = {"encode_1080p": LOW_LATENCY_OFF_PATH,
             "encode_1080p_filtered": LOW_LATENCY_OFF_PATH,
             "encode_1080p_live": LOW_LATENCY_OFF_PATH,
-            "encode_1080p_medium": ("sad_sweep",)}
+            "encode_1080p_medium": ("sad_sweep",),
+            "encode_1080p_slow": ("sad_sweep", "sad_local_argmin")}
 
 
 # the extra shapes a kernel is held and timed at, beside its main row
 SHAPES_ON_PATH = ("lookahead", "rd_adopt_luma", "rd_adopt_chroma",
-                  "rd_promote64", "bi_residual", "bi_satd", "slicetype")
+                  "rd_promote64", "bi_residual", "bi_satd", "slicetype",
+                  "dense")
 
 
 def bounds(r, cal):
@@ -1099,13 +1156,7 @@ def golden_phase():
         devcache.clear()
         enc = Encoder(testclip.golden_params(name, api_params))
         frames = testclip.golden_clip(name)
-        stream = enc.headers()
-        qp_maps = []
-        for f in frames:
-            stream += enc.encode_frame(*f)
-            q = enc._last_analysis.qp_map
-            qp_maps.append(None if q is None else q.astype(int).tolist())
-        stream += enc.flush()
+        stream, qp_maps = testclip.golden_stream(enc, name, frames)
         digest = hashlib.sha256(stream).hexdigest()
         same = (digest == gold[name]["sha256"]
                 and len(stream) == gold[name]["bytes"])
@@ -1176,24 +1227,69 @@ def attribute_launches(enc):
     return acc
 
 
+@contextlib.contextmanager
+def int_stage_launches(sink):
+    """Count the sad_sweep_argmin launches made inside me._int_stage (the
+    integer search: the dense sweep, or the hierarchical search's coarse
+    level) and note its (S, R) shapes. The counts are the wrapper's own,
+    read around each call."""
+    orig = me._int_stage
+
+    def run(cur, ref_R, mvcost, S, R):
+        before = cuda_mc.launches["sad_sweep_argmin"]
+        try:
+            return orig(cur, ref_R, mvcost, S, R)
+        finally:
+            sink["launches"] += cuda_mc.launches["sad_sweep_argmin"] - before
+            sink["shapes"].add((S, R))
+    me._int_stage = run
+    try:
+        yield
+    finally:
+        me._int_stage = orig
+
+
+def plain_first_minigop(params_fn, frames):
+    """The plain versions' stream up to the first mini-GOP that holds a B
+    picture: headers, every frame through encode_frame (the I picture
+    codes at once, the rest wait in b-adapt's window, which holds the
+    whole clip), then flush_step until a B picture is coded. A shorter
+    clip would place other mini-GOPs."""
+    enc = Encoder(params_fn(W, H))
+    if min(enc.param.rc_lookahead, 32) < len(frames):
+        fail("the first mini-GOP check needs the whole clip in b-adapt's "
+             "window")
+    stream = enc.headers()
+    for f in frames:
+        stream += enc.encode_frame(*f)
+    while enc.pending and not any(s["type"] == "B"
+                                  for s in enc.frame_stats):
+        stream += enc.flush_step()
+    return stream, len(enc.frame_stats)
+
+
 def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
-              whole_clip_plain=False):
+              plain="prefix"):
     """One main path: the frames through Encoder.encode with the launch
     counts set to 0 just before and read just after; then the frames
-    again with the plain versions, which must give the same bytes — the
-    first 3 frames (a prefix of the stream) or, for a path with B frames,
-    whose GOPs a shorter clip changes, the whole clip. types_want: the
-    frame types in encode order, or None for the B-frame checks of
-    check_b_structure. Returns the launch counts."""
+    again with the plain versions, which must give the same bytes: the
+    first 3 frames (plain="prefix", a prefix of the stream) or, for a
+    path with B frames, whose GOPs a shorter clip changes, the whole clip
+    ("whole") or the pictures up to the first mini-GOP ("first_minigop").
+    types_want: the frame types in encode order, or None for the B-frame
+    checks of check_b_structure. Returns the launch counts and the
+    launches of the integer search."""
     devcache.clear()
     enc = Encoder(params_fn(W, H))
     by_kind = attribute_launches(enc)
+    int_stage = {"launches": 0, "shapes": set()}
     profiling.reset()
     profiling.set_sync(True)
     cuda_mc.reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
-    stream = enc.encode(frames)
+    with int_stage_launches(int_stage):
+        stream = enc.encode(frames)
     torch.cuda.synchronize()
     t_enc = time.time() - t0
     launches = dict(cuda_mc.launches)
@@ -1219,7 +1315,8 @@ def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
     for st in stages_want:
         if not report.get(st, {}).get("calls"):
             fail(f"{phase}: stage {st} never ran")
-    if phase in ("encode_1080p_live", "encode_1080p_medium"):
+    if phase in ("encode_1080p_live", "encode_1080p_medium",
+                 "encode_1080p_slow"):
         extra.update({"frame_qps": [s["qp"] for s in enc.frame_stats],
                       "frame_pocs": [s["poc"] for s in enc.frame_stats],
                       "vbv_reencodes": enc.vbv_reencodes,
@@ -1232,22 +1329,33 @@ def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
         cl = enc._last_analysis.cu_log2_map
         extra["cu_size_share_last_frame"] = {
             str(1 << lg): float((cl == lg).mean()) for lg in (3, 4, 5, 6)}
+    if phase == "encode_1080p_slow":
+        if int_stage["shapes"] != {(16, 57)}:
+            fail(f"{phase}: the integer search ran at {int_stage['shapes']}"
+                 ", not only the dense S=16 R=57 sweep")
+        extra["dense_launches"] = int_stage["launches"]
     # the same frames with the plain versions forced on the card
     devcache.clear()
-    plain_frames = frames if whole_clip_plain else frames[:3]
+    plain_frames = len(frames) if plain != "prefix" else 3
     t0 = time.time()
     with plain_versions():
         cuda_mc.reset_launches()
-        plain_stream = Encoder(params_fn(W, H)).encode(plain_frames)
+        if plain == "first_minigop":
+            plain_stream, plain_frames = plain_first_minigop(params_fn,
+                                                             frames)
+        else:
+            plain_stream = Encoder(params_fn(W, H)).encode(
+                frames[:plain_frames])
         if any(cuda_mc.launches.values()):
             fail(f"{phase}: the plain-version run launched a kernel")
     t_plain = time.time() - t0
-    if whole_clip_plain:
+    if plain == "whole":
         if stream != plain_stream:
             fail(f"{phase}: kernel stream != plain-version stream over the "
                  f"whole clip ({len(stream)} vs {len(plain_stream)} bytes)")
     elif not stream.startswith(plain_stream):
-        fail(f"{phase}: kernel stream != plain-version stream")
+        fail(f"{phase}: kernel stream != plain-version stream over the "
+             f"first {plain_frames} pictures")
     per_type = {f"launches_per_{t.lower()}_frame": {
         k: v / types.count(t) for k, v in by_kind[t].items()}
         for t in "PB" if types.count(t)}
@@ -1258,8 +1366,78 @@ def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
          stage_seconds=stages, launches=launches, **per_type,
          inter_cu_share_last_frame=inter_pct,
          kernel_stream_equals_plain_stream=True,
-         plain_frames=len(plain_frames), plain_seconds=t_plain,
+         plain_pictures=plain_frames, plain_seconds=t_plain,
          bits=[s["bits"] for s in enc.frame_stats], **extra)
+    return launches, int_stage["launches"]
+
+
+def lossless_path(card):
+    """bench.py config 1 (its second timed configuration): 12 frames of
+    its 720p pan, ultrafast, lossless, keyint 1, through Encoder.encode's
+    all-intra pipelined path. Every chunk's intra analysis must run on the
+    card; the host time of each submit (enqueue only, if nothing waits for
+    the device) is reported beside the device time of the work it queued.
+    The stream is decoded by the port's decoder and every plane must
+    equal the SOURCE. No stage synchronises: the analysis of the next
+    chunk overlaps the writer as in an encode, so the stage seconds are
+    host time. Returns the launch counts (none of the kernels is on this
+    path)."""
+    phase = "encode_720p_lossless"
+    w, h = 1280, 720
+    frames = list(clip_pan(w, h, 12, seed=10))
+    devcache.clear()
+    enc = Encoder(lossless_params(w, h))
+    chunks = []
+    submit = intra_frame.submit_intra_analysis_batch
+
+    def submit_timed(srcs, *a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        t0 = time.perf_counter()
+        handles = submit(srcs, *a, **kw)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[1].record()
+        chunks.append((len(srcs), host_ms, ev,
+                       sorted({hd[0].device.type for hd in handles})))
+        return handles
+    intra_frame.submit_intra_analysis_batch = submit_timed
+    profiling.reset()
+    cuda_mc.reset_launches()
+    torch.cuda.synchronize()
+    try:
+        t0 = time.time()
+        stream = enc.encode(frames)
+        torch.cuda.synchronize()
+        t_enc = time.time() - t0
+    finally:
+        intra_frame.submit_intra_analysis_batch = submit
+    launches = dict(cuda_mc.launches)
+    if not chunks or any(c[3] != ["cuda"] for c in chunks):
+        fail(f"{phase}: the intra analysis ran on {[c[3] for c in chunks]}")
+    types = "".join(s["type"] for s in enc.frame_stats)
+    if types != "I" * len(frames):
+        fail(f"{phase}: frame types {types}, expected all I")
+    if not enc.pps.transquant_bypass_enabled:
+        fail(f"{phase}: transquant bypass is not signalled")
+    t0 = time.time()
+    pics = HEVCDecoder().decode(stream)
+    t_dec = time.time() - t0
+    if len(pics) != len(frames):
+        fail(f"{phase}: {len(pics)} pictures decoded of {len(frames)}")
+    for i, (pic, src) in enumerate(zip(pics, frames)):
+        for a, b in zip((pic.y, pic.cb, pic.cr), src):
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                fail(f"{phase}: decoded picture {i} != source (lossless)")
+    stages = {k: round(v["seconds"], 4)
+              for k, v in profiling.report().items()}
+    emit(phase, card=card, frames=len(frames), types=types,
+         bytes=len(stream), seconds=t_enc, fps=len(frames) / t_enc,
+         stage_seconds=stages, stage_seconds_are="host time (no stage "
+         "synchronises on this path)", launches=launches,
+         analysis_chunks=[{"frames": c[0], "submit_host_ms": c[1],
+                           "queued_device_ms": c[2][0].elapsed_time(c[2][1]),
+                           "device": c[3][0]} for c in chunks],
+         decoded_equals_source=True, decode_seconds=t_dec)
     return launches
 
 
@@ -1323,9 +1501,13 @@ def main():
     # ---- golden streams: the card against the JAX package's digests
     golden_phase()
 
+    # ---- bench.py config 1: 720p all-intra lossless, decoded to the source
+    launches_by_path = {"encode_720p_lossless": lossless_path(card)}
+    dense_by_path = {}
+
     # ---- the main paths at 1080p through Encoder.encode: 8 frames each,
-    # and 11 (an I picture and two mini-GOPs) for bench.py's config 3
-    launches_by_path = {}
+    # and 11 (an I picture and two mini-GOPs) for bench.py's config 3 and
+    # for the slow preset under its rate control
     for phase, params_fn, frames, types, stages in (
             ("encode_1080p", slice_params, make_clip(W, H, 8, seed=11),
              "IPPPPPPP", ()),
@@ -1338,18 +1520,27 @@ def main():
             ("encode_1080p_medium", medium_params,
              list(clip_crowd1080(W, H, 11, seed=40)), None,
              ("slicetype", "lookahead", "motion", "rd_adopt", "rd_promote",
-              "loopfilter", "finalize"))):
-        launches_by_path[phase] = main_path(
-            phase, params_fn, frames, card, types, stages,
-            whole_clip_plain=types is None)
+              "loopfilter", "finalize")),
+            ("encode_1080p_slow", slow_params,
+             list(clip_crowd1080(W, H, 11, seed=40)), None,
+             ("slicetype", "lookahead", "motion", "rd_adopt", "rd_promote",
+              "tpu_residual", "loopfilter", "finalize"))):
+        plain = ("prefix" if types is not None else
+                 "whole" if phase == "encode_1080p_medium" else
+                 "first_minigop")
+        launches_by_path[phase], dense_by_path[phase] = main_path(
+            phase, params_fn, frames, card, types, stages, plain=plain)
 
-    # ---- the kernels' table (launches: this slice's path, config 3)
+    # ---- the kernels' table (launches: the main paths' runs together,
+    # each path's own count beside it; the lossless path launches none).
+    # Off the table: the entries no main path runs.
     table, off_path = [], []
-    this_path = launches_by_path["encode_1080p_medium"]
+    off_every_path = set.intersection(*(set(v) for v in OFF_PATH.values()))
     for name, r in rows.items():
         row = {
             "name": name, "route": "cuda", "source": META[name][0],
-            "replaces": META[name][1], "launches": this_path[name],
+            "replaces": META[name][1],
+            "launches": sum(v[name] for v in launches_by_path.values()),
             "launches_by_path": {k: v[name]
                                  for k, v in launches_by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1368,8 +1559,10 @@ def main():
                                            "plain_ms", "cold_l2_ms",
                                            "library_ms") if k in sub},
                     **bounds(sub, cal)}
-        (off_path if name in OFF_PATH["encode_1080p_medium"]
-         else table).append(row)
+                if key == "dense":
+                    # the launches of the dense search alone
+                    row[key]["launches"] = dense_by_path["encode_1080p_slow"]
+        (off_path if name in off_every_path else table).append(row)
     print(json.dumps({"kernels": table,
                       "entries_off_the_main_path": off_path,
                       "calibration": cal}), flush=True)

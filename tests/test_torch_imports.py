@@ -1,8 +1,9 @@
 """The port stands alone: no module of x265_tpu_torch, nor chip_smoke.py,
 imports jax or the JAX package — checked in the sources and, in a fresh
 interpreter, in sys.modules after importing every module. Also: options
-outside the ported slices raise, the ported ones are accepted, and no
-CUDA device without an explicit CPU request raises."""
+outside the ported slices raise, the ported ones are accepted (those of
+the slow preset, lossless and keyint 1 among them), and no CUDA device
+without an explicit CPU request raises."""
 import os
 import re
 import subprocess
@@ -76,10 +77,8 @@ def _params(**kw):
     ("frame_dup", dict(frame_dup=True)),
     ("intra_refresh", dict(intra_refresh=True)),
     ("scaling_lists", dict(scaling_lists=True)),
-    ("rd_level", dict(rd_level=4)), ("rdoq_level", dict(rdoq_level=1)),
-    ("tu_inter_depth", dict(tu_inter_depth=2)), ("tskip", dict(tskip=True)),
-    ("lossless", dict(lossless=True)), ("slices", dict(slices=2)),
-    ("wpp", dict(wpp=True)), ("keyint 1", dict(keyint=1)),
+    ("tskip", dict(tskip=True)), ("slices", dict(slices=2)),
+    ("wpp", dict(wpp=True)),
 ])
 def test_unsupported_option_raises_naming_it(name, kw):
     from x265_tpu_torch.api.encoder import Encoder
@@ -102,6 +101,33 @@ def test_filter_options_are_accepted(kw):
     assert enc.pps.cu_qp_delta_enabled == bool(
         kw.get("aq_mode") or kw.get("cu_tree"))
     assert enc.sps.sao_enabled == bool(kw.get("sao"))
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("rd_level", dict(rd_level=4)), ("rdoq_level", dict(rdoq_level=1)),
+    ("tu_inter_depth", dict(tu_inter_depth=2)),
+    ("lossless", dict(lossless=True)), ("keyint 1", dict(keyint=1))])
+def test_slow_and_lossless_options_are_accepted(name, kw):
+    """rd 4, RDOQ, the explicit inter RQT, lossless and all-intra are
+    ported (they raised until the slice that ported them): the encoder
+    opens and signals each in its parameter sets."""
+    from x265_tpu_torch.api.encoder import Encoder
+    enc = Encoder(_params(**kw), device="cpu")
+    p = enc.param
+    lossless = bool(kw.get("lossless"))
+    assert enc.pps.transquant_bypass_enabled == lossless
+    assert enc.pps.sign_data_hiding == (p.sign_hide and not lossless)
+    assert enc.sps.max_transform_hierarchy_depth_inter == (
+        p.tu_inter_depth - 1)
+    if name == "tu_inter_depth":
+        assert enc.sps.max_transform_hierarchy_depth_inter == 1
+    elif name == "lossless":
+        assert p.qp == 4 and p.rdoq_level == 0
+        assert not enc.pps.cu_qp_delta_enabled
+    elif name == "keyint 1":
+        assert not enc.ipp and enc.sps.max_dec_pic_buffering == 1
+    else:
+        assert getattr(p, name) == kw[name]
 
 
 @pytest.mark.parametrize("kw", [

@@ -144,6 +144,9 @@ def test_inter_class_body_exact():
 
 
 def test_unported_inputs_raise():
+    """Scaling lists still raise; RDOQ and the explicit RQT level are
+    ported (tests/test_torch_rqt.py); a picture with no inter CU gives
+    None."""
     w, h = 64, 64
     fr = make_clip(w, h, 2, seed=1)
     maps = _decisions(w, h, 5, 0)
@@ -153,16 +156,15 @@ def test_unported_inputs_raise():
                            80 >> (0 if i == 0 else 1), mode="edge")
                     for i, pl in enumerate(fr[0]))
     dec = decisions_from_numpy(**maps)
-    with pytest.raises(NotImplementedError):
+    pt.scaling_lists = "default"
+    with pytest.raises(NotImplementedError, match="scaling"):
         tir.build_inter_pre(fr[1], dec, ([ref_pad], []), 30, pt, None,
-                            True, 1, device="cpu")          # rdoq
-    # list 1 and bi lanes are ported (tests/test_torch_bframes.py); the
-    # explicit RQT level still raises
+                            True, 1, device="cpu")
+    pt.scaling_lists = ""
     pt.tu_inter_depth = 2
-    with pytest.raises(NotImplementedError, match="RQT"):
-        tir.build_inter_pre(fr[1], dec, ([ref_pad], []), 30, pt, None,
-                            True, 0, device="cpu")          # rqt
-    pt.tu_inter_depth = 1
+    got = tir.build_inter_pre(fr[1], dec, ([ref_pad], []), 30, pt, None,
+                              True, 2, device="cpu")        # rdoq + rqt
+    assert got is not None and got["has8"].all()
     dec.inter8[:] = False
     assert tir.build_inter_pre(fr[1], dec, ([ref_pad], []), 30, pt, None,
                                True, 0, device="cpu") is None

@@ -162,3 +162,49 @@ def test_bi_search_raises():
     cur, ref = _pair(1)
     with pytest.raises(ValueError, match="two references"):
         tme.motion_fused(cur, [ref], W, H, do_bi=True, device="cpu")
+
+
+def test_dense_search_r57_four_refs_subme3():
+    """The slow preset's search: `--me star` forces the dense integer
+    sweep (kernel 5's argmin entry, one launch a reference) at merange 57
+    over four references, then subme 3's refinement; vectors and SATDs
+    exact, costs as in test_motion_fused."""
+    fr = make_clip(W, H, 5, 21, (3, 9))
+    cur = fr[4][0]
+    refs = [f[0].astype(np.int32) for f in fr[3::-1]]
+    mj, cj, sj, _ = jme.motion_fused(cur, refs, W, H, R=57, qp=27,
+                                     subme=3, force_dense=True)
+    mt, ct, st, _ = tme.motion_fused(cur, refs, W, H, R=57, qp=27,
+                                     subme=3, force_dense=True,
+                                     device="cpu")
+    assert mt.shape == mj.shape and mt.shape[0] == 4
+    assert np.array_equal(mt, mj) and np.array_equal(st, sj)
+    np.testing.assert_allclose(ct, cj, rtol=1e-4)
+    # the farther references moved farther: the dense sweep found vectors
+    # beyond the +-7 window of the hierarchical search
+    assert np.abs(mj[3]).max() > 4 * 7
+
+
+def test_dense_int_stage_r57_exact_and_flat_first_minimum():
+    """_int_stage at the dense shape (S=16, R=57) with the encoder's mv
+    cost, and on flat content with zero cost, where d = 0 (dy = dx = -57,
+    the scan's first displacement) must win."""
+    cur, ref = _pair(31, (6, 11))
+    R = 57
+    dys, dxs = np.mgrid[-R:R + 1, -R:R + 1]
+    mvc = (2.8 * (jme._mv_bits(4 * dxs.ravel())
+                  + jme._mv_bits(4 * dys.ravel()))).astype(np.float32)
+    rR = np.pad(ref, R, mode="edge")
+    want = np.asarray(jme._int_stage(jnp.asarray(cur), jnp.asarray(rR),
+                                     jnp.asarray(mvc), 16, R))
+    got = tme._int_stage(torch.from_numpy(cur), torch.from_numpy(rR),
+                         torch.from_numpy(mvc), 16, R).numpy()
+    assert np.array_equal(got, want) and np.any(want != 0)
+    flat = np.full_like(cur, 77)
+    fR = np.full_like(rR, 77)
+    zero = np.zeros_like(mvc)
+    got = tme._int_stage(torch.from_numpy(flat), torch.from_numpy(fR),
+                         torch.from_numpy(zero), 16, R).numpy()
+    want = np.asarray(jme._int_stage(jnp.asarray(flat), jnp.asarray(fR),
+                                     jnp.asarray(zero), 16, R))
+    assert np.array_equal(got, want) and np.all(got == -R)

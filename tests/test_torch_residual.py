@@ -55,10 +55,13 @@ def test_transform_stages_exact(n):
 
 
 def test_unported_branches_raise():
+    """Scaling lists are the one branch still refused (RDOQ is ported:
+    tests/test_torch_rdoq.py)."""
     z = torch.zeros((1, 4, 4), dtype=torch.int32)
     q = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(NotImplementedError):
-        tres.tq_chain(z, q, q, 4, False, False, 8, False, True, False)
+        tres.tq_chain(z, q, q, 4, False, False, 8, False, True, False,
+                      scaling=True)
     with pytest.raises(NotImplementedError):
         tres.tq_chain(z, q, q, 4, False, False, 8, False, False, False,
                       scaling=True)

@@ -106,17 +106,6 @@ def slice_params(pkg, w, h, **extra):
 
 # ---- golden cases (x265_tpu_torch/utils/testclip.GOLDEN_CASES) ----------
 
-def frame_by_frame(enc, frames):
-    """(stream, per-frame qp maps) through headers/encode_frame/flush."""
-    stream = enc.headers()
-    qp_maps = []
-    for f in frames:
-        stream += enc.encode_frame(*f)
-        q = enc._last_analysis.qp_map
-        qp_maps.append(None if q is None else q.astype(int).tolist())
-    return stream + enc.flush(), qp_maps
-
-
 def count_reencodes(enc):
     """Count, in enc.vbv_reencodes, the VBV re-encodes the JAX package's
     encoder's rate control asks for (the port's Encoder counts its own)."""
@@ -152,9 +141,9 @@ def golden_encoders(name):
     frames = testclip.golden_clip(name)
     enc = TEncoder(testclip.golden_params(name, TP), device="cpu")
     recons = recon_collector(enc)
-    stream, qp_maps = frame_by_frame(enc, frames)
+    stream, qp_maps = testclip.golden_stream(enc, name, frames)
     jenc = count_reencodes(JEncoder(testclip.golden_params(name, JP)))
-    ref, ref_qp_maps = frame_by_frame(jenc, frames)
+    ref, ref_qp_maps = testclip.golden_stream(jenc, name, frames)
     gold = testclip.golden_digests()[name]
     assert gold == {"sha256": hashlib.sha256(ref).hexdigest(),
                     "bytes": len(ref), "qp_maps": ref_qp_maps}, \

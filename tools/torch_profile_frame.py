@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
-"""Where one 1080p P frame (or one mini-GOP) of the PyTorch/CUDA port
-spends its time.
+"""Where one 1080p P frame (or one mini-GOP, or one chunk of the
+all-intra path) of the PyTorch/CUDA port spends its time.
 
     python3 tools/torch_profile_frame.py
-        [--config ultrafast|filtered|live|medium] [--frames N]
-        [--out trace.json]
+        [--config ultrafast|filtered|live|medium|slow|lossless]
+        [--frames N] [--out trace.json]
 
-Needs a CUDA device. Encodes a seeded 1920x1080 clip in one of the four
-configurations chip_smoke.py drives (ultrafast + zerolatency; the
+Needs a CUDA device. Encodes a seeded clip in one of the configurations
+chip_smoke.py drives (at 1920x1080: ultrafast + zerolatency; the
 filtered fast + zerolatency with its brightness ramp; the live medium +
 zerolatency under CRF 23 and a 6000 kbps VBV buffer, on the scene-cut
 clip with the cut at frame 4, so the last frame is a P frame of the new
 scene; x265's default medium at 4000 kbps ABR, bench.py's config 3, on
-its clip_crowd1080), lets the first frames warm everything up, then
-traces with torch.profiler the LAST P frame or, for medium, the second
-mini-GOP: the flush_step call that codes one P anchor and the B
-pictures before it (frames default 6, and 11 for medium: the I picture
-and ten queued pictures, two or more mini-GOPs). Prints one JSON object:
+its clip_crowd1080; the slow preset under the same rate control; at
+1280x720 bench.py's config 1, all-intra lossless on its pan), lets the
+first frames warm everything up, then traces with torch.profiler the
+LAST P frame or, for medium and slow, the second mini-GOP: the
+flush_step call that codes one P anchor and the B pictures before it
+(frames default 6, and 11 for medium and slow: the I picture and ten
+queued pictures, two or more mini-GOPs); for lossless, one chunk of the
+pipelined path (Encoder.encode of 8 frames, after another encoder's
+encode of the same frames as warm-up), with no stage synchronising, so
+that the analysis overlaps the writer as in an encode and the stage
+times are host time. Prints one JSON object:
 the wall time, the device's busy time and idle share inside it, the
 per-stage seconds (and the lookahead's share of the wall time), the
 device time of the hand-written kernels, and the kernels that took most
@@ -46,14 +52,16 @@ OURS = ("mc_gather_kernel", "tile_gather_", "gather_satd_kernel",
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config",
-                    choices=("ultrafast", "filtered", "live", "medium"),
+                    choices=("ultrafast", "filtered", "live", "medium",
+                             "slow", "lossless"),
                     default="ultrafast")
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     card = chip_smoke.smi()
     W, H = chip_smoke.W, chip_smoke.H
-    n = args.frames or (11 if args.config == "medium" else 6)
+    n = args.frames or {"medium": 11, "slow": 11, "lossless": 8}.get(
+        args.config, 6)
     if args.config == "filtered":
         frames = chip_smoke.make_ramp_clip(W, H, n, seed=11,
                                            step=0.05)
@@ -62,14 +70,23 @@ def main():
         frames = chip_smoke.make_cut_clip(W, H, n, seed=11,
                                           cut=4)
         enc = Encoder(chip_smoke.live_params(W, H))
-    elif args.config == "medium":
+    elif args.config in ("medium", "slow"):
         frames = list(chip_smoke.clip_crowd1080(W, H, n, seed=40))
-        enc = Encoder(chip_smoke.medium_params(W, H))
+        params = (chip_smoke.medium_params if args.config == "medium"
+                  else chip_smoke.slow_params)
+        enc = Encoder(params(W, H))
+    elif args.config == "lossless":
+        W, H = 1280, 720
+        frames = list(chip_smoke.clip_pan(W, H, n, seed=10))
+        Encoder(chip_smoke.lossless_params(W, H)).encode(frames)
+        enc = Encoder(chip_smoke.lossless_params(W, H))
     else:
         frames = chip_smoke.make_clip(W, H, n, seed=11)
         enc = Encoder(chip_smoke.slice_params(W, H))
-    enc.headers()
-    if args.config == "medium":
+    if args.config == "lossless":
+        step = lambda: enc.encode(frames)  # noqa: E731
+    elif args.config in ("medium", "slow"):
+        enc.headers()
         # the I picture codes at once, the rest queue (b-adapt's window is
         # rc-lookahead frames); the first mini-GOP warms up the B path
         for f in frames:
@@ -77,12 +94,13 @@ def main():
         enc.flush_step()
         step = enc.flush_step
     else:
+        enc.headers()
         for f in frames[:-1]:
             enc.encode_frame(*f)
         step = lambda: enc.encode_frame(*frames[-1])  # noqa: E731
     torch.cuda.synchronize()
     profiling.reset()
-    profiling.set_sync(True)
+    profiling.set_sync(args.config != "lossless")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -116,6 +134,7 @@ def main():
         "frame_type": "".join(st["type"] for st in enc.frame_stats[done:]),
         "frame_pocs": [st["poc"] for st in enc.frame_stats[done:]],
         "frame_wall_ms": wall * 1e3, "stage_ms": stage_ms,
+        "slowest_stage": max(stage_ms, key=stage_ms.get, default=None),
         "lookahead_share_of_wall": stage_ms.get("lookahead", 0.0)
         / (wall * 1e3),
     }

@@ -8,8 +8,13 @@ middle B and open-GOP CRAs whose queued pictures become RASL leading
 pictures — single slice per picture, Annex-B output, under CQP, CRF or
 ABR with VBV, with the lookahead (scenecut, cuTree), the in-loop filters
 (deblock, SAO), adaptive quantization, weighted prediction (P anchors)
-and the rd 3 decisions: the presets from `ultrafast` to `medium`, with or
-without `zerolatency`. Per picture: the lowres lookahead costs, intra
+and the rd 3 decisions (rd 4 is the same path), RDOQ with psy-RDOQ, the
+explicit inter RQT level (tu-inter-depth 2) and the dense integer search
+(`--me star`/`full`/`sea`): the presets from `ultrafast` to `slow`, with
+or without `zerolatency`. Lossless (transquant bypass: no deblock, no
+SAO, no cu_qp_delta) and all-intra (keyint 1: a pipelined path whose
+device analysis runs a chunk ahead of the host writer, every picture an
+IDR) are encoded too. Per picture: the lowres lookahead costs, intra
 analysis and motion search on the device (both anchors and their
 bi-prediction for a B), merge adoption and CU promotion (batched RD
 passes on the device under rd 3, host rules below it), inter
@@ -143,18 +148,12 @@ def _check_supported(p) -> None:
     """Raise NotImplementedError, naming the option, for everything this
     port does not encode yet — never silently encode something else."""
     bad = []
-    if p.keyint == 1:
-        bad.append("keyint 1 (the all-intra pipelined path)")
-    for name in ("rdoq_level", "tskip", "lossless", "wpp", "hist_scenecut",
-                 "frame_dup", "intra_refresh", "scaling_lists", "nr_intra",
-                 "nr_inter", "qpfile", "analysis_save", "analysis_load",
-                 "zones", "pass_num"):
+    for name in ("tskip", "wpp", "hist_scenecut", "frame_dup",
+                 "intra_refresh", "scaling_lists", "nr_intra", "nr_inter",
+                 "qpfile", "analysis_save", "analysis_load", "zones",
+                 "pass_num"):
         if getattr(p, name, 0):
             bad.append(name)
-    if p.rd_level >= 4:
-        bad.append("rd_level >= 4")
-    if p.tu_inter_depth >= 2:
-        bad.append("tu_inter_depth >= 2")
     if p.slices > 1:
         bad.append("slices > 1")
     if p.bit_depth > 8:
@@ -183,7 +182,7 @@ class Encoder:
         )
         # GOP structure: IDR + P anchors every bframes+1 pictures, B
         # pictures in between (RPS written inline per slice); keyint 1
-        # is refused above, so there is always an inter path
+        # is all-intra (every picture an IDR)
         self.ipp = p.keyint != 1
         self.bframes = p.bframes if self.ipp else 0
         self.pyramid = p.b_pyramid and self.bframes >= 3
@@ -191,8 +190,11 @@ class Encoder:
         # DPB size must cover every retained picture: up to p.ref anchors
         # + the pyramid's referenced B + the current picture (libde265
         # enforces sps_max_dec_pic_buffering strictly)
-        refs_kept = max(1, p.ref) + (1 if self.pyramid else 0)
-        dpb = min(8, refs_kept + 1 + (1 if self.bframes else 0))
+        if not self.ipp:
+            dpb = 1
+        else:
+            refs_kept = max(1, p.ref) + (1 if self.pyramid else 0)
+            dpb = min(8, refs_kept + 1 + (1 if self.bframes else 0))
         self.vps = VPS(max_dec_pic_buffering=dpb, num_reorder_pics=reorder,
                        ptl=ptl)
         self.sps = SPS(
@@ -260,13 +262,14 @@ class Encoder:
         self._poc_mask = (1 << self.sps.log2_max_poc_lsb) - 1
         self.pps = PPS(
             weighted_pred=p.weightp,
-            sign_data_hiding=p.sign_hide,
+            sign_data_hiding=p.sign_hide and not p.lossless,
             init_qp=26,
             cb_qp_offset=p.cb_qp_offset,
             cr_qp_offset=p.cr_qp_offset,
-            transquant_bypass_enabled=False,
+            transquant_bypass_enabled=p.lossless,
             transform_skip_enabled=False,
-            cu_qp_delta_enabled=bool(p.aq_mode > 0 or p.cu_tree),
+            cu_qp_delta_enabled=bool((p.aq_mode > 0 or p.cu_tree)
+                                     and not p.lossless),
             diff_cu_qp_delta_depth=0,          # QG == CTB
             deblocking_filter_control_present=(
                 not p.deblock or p.deblock_beta_offset != 0
@@ -1223,7 +1226,7 @@ class Encoder:
             off = np.clip(np.rint(off), -12, 12)
             decisions.qp_map = np.clip(sh.qp + off, 0, 51).astype(np.int32)
         self._last_analysis = decisions
-        sao_on = bool(p.sao)
+        sao_on = bool(p.sao and not p.lossless)
         wp_native = None
         if (sh.luma_weights_l0 is not None
                 or sh.chroma_weights_l0 is not None):
@@ -1278,15 +1281,17 @@ class Encoder:
                 decisions.chroma_mode8, decisions.inter8, decisions.dir8,
                 decisions.mv8, slice_type, sh.max_num_merge_cand,
                 refs_native, ref_poc, poc, pad,
-                p.ctb_log2, p.min_cb_log2, sh.qp, False,
+                p.ctb_log2, p.min_cb_log2, sh.qp, p.lossless,
                 self.pps.sign_data_hiding, p.intra_smoothing,
                 p.cb_qp_offset, p.cr_qp_offset,
                 sao_params=sp, sao_luma=sp is not None,
                 sao_chroma=sp is not None, qp_map=decisions.qp_map,
                 bit_depth=p.bit_depth, ref8=decisions.ref8,
-                rdoq_level=0, weights=wp_native, col=col,
+                rdoq_level=p.rdoq_level, weights=wp_native, col=col,
                 col_from_l0=int(sh.collocated_from_l0),
                 pre=pre_arg, collect=collect_arg,
+                psy_rdoq_fx=(int(round(p.psy_rdoq * 256))
+                             if p.rdoq_level >= 2 else 0),
                 tu_inter_depth=p.tu_inter_depth)
 
         # with SAO on, the first walk is collect-only (CABAC disabled):
@@ -1318,7 +1323,8 @@ class Encoder:
         # the deblocked recon come with it. The filtered planes STAY on
         # the device (keep_device): they are the next pictures'
         # references.
-        keep_dev = bool(self.use_tpu_loopfilter and p.deblock)
+        keep_dev = bool(self.use_tpu_loopfilter and p.deblock
+                        and not p.lossless)
         sao_src = (y, cb, cr) if sao_on else None
         if slice_type == SLICE_I:
             fin_lf = self._deblock_intra_recon(
@@ -1378,7 +1384,7 @@ class Encoder:
         with sao_src the SAO statistics come with it and (recon, stats)
         is returned."""
         p = self.param
-        if not p.deblock:
+        if not p.deblock or p.lossless:
             res = recon if sao_src is None else (recon, None)
             return res if sync else (lambda: res)
         from x265_tpu_torch.hevc.deblock import NOPOC, DeblockState
@@ -1445,7 +1451,7 @@ class Encoder:
         sao_src the SAO statistics come with it and (recon, stats)
         returns."""
         p = self.param
-        if not p.deblock:
+        if not p.deblock or p.lossless:
             res = recon if sao_src is None else (recon, None)
             return res if sync else (lambda: res)
         from x265_tpu_torch.hevc.deblock import DeblockState, NOPOC
@@ -2005,10 +2011,67 @@ class Encoder:
 
     def encode(self, frames) -> bytes:
         """Encode an iterable of (y, cb, cr) frames; returns full stream."""
+        p = self.param
+        if p.keyint == 1:
+            return self._encode_all_intra_pipelined(frames)
         out = [self.headers()]
         for (y, cb, cr) in frames:
             out.append(self.encode_frame(y, cb, cr))
         out.append(self.flush())
+        self.close()
+        return b"".join(out)
+
+    def _encode_all_intra_pipelined(self, frames) -> bytes:
+        """All-intra path: the intra analysis of a chunk of frames is
+        enqueued on the device before the host writer codes the chunk
+        ahead of it (x265's frame threads as one device queue). Every
+        access unit is an IDR at POC 0."""
+        from collections import deque
+
+        from x265_tpu_torch.models.intra_frame import (
+            finish_intra_analysis, submit_intra_analysis_batch)
+        from x265_tpu_torch.utils.profiling import scope
+        p = self.param
+        cu_log2 = 4 if p.ctb_log2 >= 4 else p.ctb_log2
+        out = [self.headers()]
+        frames = [self._clip_input(tuple(np.asarray(pl) for pl in f))
+                  for f in frames]
+        BATCH = 8        # frames per chunk
+        INFLIGHT = 2     # chunks enqueued ahead of the writer
+        pending = deque()
+        idx = 0
+        while idx < len(frames) or pending:
+            # keep the device queue full: the analysis of the next chunks
+            # runs while the host codes this one
+            while idx < len(frames) and len(pending) < INFLIGHT:
+                chunk = frames[idx:idx + BATCH]
+                with scope("analysis"):
+                    handles = submit_intra_analysis_batch(
+                        [f[0] for f in chunk], p.width, p.height, cu_log2,
+                        fast=p.fast_intra, psy=float(p.psy_rd),
+                        device=self.device)
+                pending.append((chunk, handles))
+                idx += len(chunk)
+            chunk, handles = pending.popleft()
+            for f, h in zip(chunk, handles):
+                with scope("analysis"):
+                    dec = finish_intra_analysis(h)
+                    # frame complexity for CRF/ABR: the analysis's
+                    # per-block intra costs, summed on the host in the
+                    # reference's dtype (float32) and order (numpy)
+                    satd_cost = float(h[1].cpu().numpy().sum())
+                qp = self.rc.start(SLICE_I, max(1.0, satd_cost))
+                if p.rd_level >= 3:
+                    from x265_tpu_torch.models.intra_rdo import \
+                        rd_intra_promote32
+                    with scope("rd_promote"):
+                        rd_intra_promote32(f, dec, qp, p,
+                                           device=self.device)
+                self._gop_base = self.frame_count   # every AU is POC 0
+                au = self._encode_intra_frame(*f, dec, qp=qp)
+                self.rc.end(len(au) * 8)
+                self.frame_count += 1
+                out.append(au)
         self.close()
         return b"".join(out)
 

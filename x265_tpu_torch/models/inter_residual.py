@@ -19,7 +19,16 @@ xf/yf special case exactly because 64 = 2^6 divides the stage shifts.
 
 Ported so far: uni-directional prediction from list 0 (with or without
 explicit weights) or list 1, bi-prediction, TU == CU (64x64 CUs as four
-32x32 quadrants). RDOQ, scaling lists and the explicit RQT level raise.
+32x32 quadrants), the integer RDOQ (estBit constants, psy-RDOQ) and the
+explicit RQT level (tu-inter-depth 2: a 16x16 or 32x32 CU keeps its one
+TU or splits it into four, whichever costs less). Scaling lists raise.
+
+The RQT choice is a float32 cost comparison. Its sums are taken as
+integers (SSE) or in Q15 (rates) and converted once, which equals the
+JAX package's float32 sums whenever those are exact (a plane's SSE below
+2^24, a TB's rate below 512 bits); the sum of four quadrant rates is
+taken left to right, and the rate product is rounded on its own, as the
+reference's compiled CPU code does (models/rdo._rd_cost).
 """
 from __future__ import annotations
 
@@ -86,8 +95,8 @@ def _mc_gather(planes, ridx, x0, y0, mvx, mvy, filt, fb, n, taps, pad, bd):
 def _tq_quads(res, qvec, m, N, bd, sdh, do_rdoq, lossless, scaling,
               kk=None, pfx=0):
     """res [N,2m,2m] -> per-quadrant transform chain at m (z-order);
-    returns (lvl [N,2m,2m], rres [N,2m,2m], cbf [N,4]). Serves the
-    64x64 implicit RQT split."""
+    returns (lvl [N,2m,2m], rres [N,2m,2m], cbf [N,4]). Serves both the
+    64x64 implicit RQT split and the explicit inter RQT level."""
     q = res.reshape(N, 2, m, 2, m).permute(0, 1, 3, 2, 4)
     q = q.reshape(N * 4, m, m)
     lv, rr, cb_ = _tq_chain(q, qvec.repeat_interleave(4),
@@ -116,11 +125,13 @@ def _inter_class_body(src_y, src_cb, src_cr,
     offset); r1* the list-1 stacks (one reference) or None when list 1 is
     empty; wp [4,3,3] int32 (flag, weight, offset) explicit L0 weights
     per reference and plane, or None; wld/wcd their log2 denominators.
+    consts: [2,8] estBit RDOQ constants (luma, chroma) or None (the
+    static model); psy_fx: psy-RDOQ strength (luma); rqt: the explicit
+    RQT level for the 16 and 32 classes, priced with the estBit rows
+    rate_kk [2,8].
     Returns (lvl_y [N,n,n], lvl_cb, lvl_cr [N,n/2,n/2], cbf [N,3] or
     [N,4,3], rec_y [N,n,n], rec_cb, rec_cr, tusplit [N]).
     """
-    if rqt:
-        raise NotImplementedError("explicit inter RQT is not ported yet")
     N = xy.shape[0]
     hs = n // 2
     maxv = (1 << bd) - 1
@@ -234,6 +245,62 @@ def _inter_class_body(src_y, src_cb, src_cr,
                                              lossless, scaling, kc)
         cbf = torch.stack([qcbf_y, qcbf_cb, qcbf_cr], dim=2)  # [N,4,3]
     tusplit = torch.zeros((N,), dtype=torch.int32, device=dev)
+    if rqt and 16 <= n <= 32 and not lossless:
+        # explicit RQT level (x265 estimateResidualQT, search.cpp:2863):
+        # re-run the chain with the TU split into 4 quadrants and keep
+        # the per-CU winner of 32*SSE + lambda*estBits (+ the tree's
+        # extra cbf/flag bins charged to the split)
+        from x265_tpu_torch.models.rdo import (_lam_full, _sse,
+                                               _tb_rate_bits_j)
+        lam = _lam_full(qpy) / float(1 << 15)        # bits domain
+        ry, rcb, rcr = sy - pred_y, scb - pred_cb, scr - pred_cr
+        ly2, ry2, qy2 = _tq_quads(ry, qpy, n // 2, N, bd, sdh, do_rdoq,
+                                  lossless, scaling, kl, psy_fx)
+        lcb2, rcb2, qcb2 = _tq_quads(rcb, cqp(cb_off), hs // 2, N, bd, sdh,
+                                     do_rdoq, lossless, scaling, kc)
+        lcr2, rcr2, qcr2 = _tq_quads(rcr, cqp(cr_off), hs // 2, N, bd, sdh,
+                                     do_rdoq, lossless, scaling, kc)
+
+        def sse3(ra, rb, rc):
+            return _sse(ry, ra) + _sse(rcb, rb) + _sse(rcr, rc)
+
+        def rate_whole(lv, kkrow):
+            return torch.where((lv != 0).any(dim=2).any(dim=1),
+                               _tb_rate_bits_j(lv, kkrow), 0.0)
+
+        def rate_quads(lv, kkrow, m):
+            q = (lv.reshape(N, 2, m, 2, m).permute(0, 1, 3, 2, 4)
+                 .reshape(N * 4, m, m))
+            r = torch.where((q != 0).any(dim=2).any(dim=1),
+                            _tb_rate_bits_j(q, kkrow), 0.0).reshape(N, 4)
+            return ((r[:, 0] + r[:, 1]) + r[:, 2]) + r[:, 3]
+
+        kkl, kkc = rate_kk[0], rate_kk[1]
+        rate_a = (rate_whole(lvl_y, kkl) + rate_whole(lvl_cb, kkc)
+                  + rate_whole(lvl_cr, kkc))
+        rate_b = (rate_quads(ly2, kkl, n // 2)
+                  + rate_quads(lcb2, kkc, hs // 2)
+                  + rate_quads(lcr2, kkc, hs // 2))
+        # tree-bin overhead of the split: 4 extra cbf_luma + up to 8
+        # child chroma cbfs, ~8 bins net of the shared flag
+        cost_a = 32.0 * sse3(rres_y, rres_cb, rres_cr) + lam * rate_a
+        cost_b = 32.0 * sse3(ry2, rcb2, rcr2) + lam * (rate_b + 8.0)
+        split = cost_b < cost_a
+        tusplit = split.to(torch.int32)
+        sm = split[:, None, None]
+        lvl_y = torch.where(sm, ly2, lvl_y)
+        rres_y = torch.where(sm, ry2, rres_y)
+        lvl_cb = torch.where(sm, lcb2, lvl_cb)
+        rres_cb = torch.where(sm, rcb2, rres_cb)
+        lvl_cr = torch.where(sm, lcr2, lvl_cr)
+        rres_cr = torch.where(sm, rcr2, rres_cr)
+        # per-quadrant cbf (z-order) regardless of the choice: an
+        # unsplit CU gives its single cbf to all 4 cells
+        whole = torch.stack([(a != 0).any(dim=2).any(dim=1)
+                             for a in (lvl_y, lvl_cb, lvl_cr)], dim=1)
+        quads = torch.stack([qy2, qcb2, qcr2], dim=2)          # [N,4,3]
+        cbf = torch.where(split[:, None, None], quads,
+                          whole[:, None, :].expand_as(quads))
     rec_y = (pred_y + rres_y).clamp_(0, maxv)
     rec_cb = (pred_cb + rres_cb).clamp_(0, maxv)
     rec_cr = (pred_cr + rres_cr).clamp_(0, maxv)
@@ -332,12 +399,11 @@ def build_inter_pre(src, decisions, refs_padded, qp_slice, p, wp_native,
     shape, so there are no padding lanes and nothing to drop.
     """
     from x265_tpu_torch.engine.planes import FramePlanes
+    from x265_tpu_torch.hevc.rate_model import slice_rate_consts
     from x265_tpu_torch.utils import devcache
     device = resolve_device(device)
     if decisions.inter8 is None or not np.any(decisions.inter8):
         return None
-    if rdoq_level > 0 and not p.lossless:
-        raise NotImplementedError("RDOQ is not ported yet")
     h, w = src[0].shape
     h8, w8 = decisions.cu_log2_map.shape
     bd = p.bit_depth
@@ -417,14 +483,27 @@ def build_inter_pre(src, decisions, refs_padded, qp_slice, p, wp_native,
         wld, wcd = int(wp_native[1]), int(wp_native[2])
     else:
         wp_arr, wld, wcd = None, 0, 0
-    rqt = bool(getattr(p, "tu_inter_depth", 1) >= 2
-               and not p.lossless and not p.tskip)
+    kk = None
+    psy_fx = 0
+    if rdoq_level > 0 and not p.lossless:
+        # estBit RDOQ consts from the SLICE qp/type — identical to the
+        # native and oracle derivations (hevc/rate_model.py)
+        kk = put(np.array(slice_rate_consts(slice_type, qp_slice)))
+        if rdoq_level >= 2:
+            psy_fx = int(round(p.psy_rdoq * 256))
+    # explicit inter RQT level (x265 tuQTMaxInterDepth >= 2,
+    # search.cpp:2863): RD-choose TU==CU vs a 4-quad split for the
+    # 16/32 classes; the estBit rate rows feed the choice even when
+    # RDOQ itself is off
+    rqt = bool(p.tu_inter_depth >= 2 and not p.lossless and not p.tskip)
+    rate_kk = (put(np.array(slice_rate_consts(slice_type, qp_slice)))
+               if rqt else None)
     pouts = _inter_multi_planes(
         sy, scb, scr, r0y, r0cb, r0cr, r1y, r1cb, r1cr,
         tuple(c[1] for c in classes), wp_arr, tuple(c[0] for c in classes),
-        bd, bool(sdh), False, bool(p.lossless), pad, wld, wcd,
+        bd, bool(sdh), rdoq_level > 0, bool(p.lossless), pad, wld, wcd,
         int(p.cb_qp_offset), int(p.cr_qp_offset),
-        bool(p.scaling_lists), None, 0, rqt, None)
+        bool(p.scaling_lists), kk, psy_fx, rqt, rate_kk)
     (lvl_y, lvl_cb, lvl_cr, cbf8, has8, rec_y, rec_cb, rec_cr,
      tus8) = (t.cpu().numpy() for t in pouts)
     return {"lvl_y": lvl_y, "lvl_cb": lvl_cb, "lvl_cr": lvl_cr,

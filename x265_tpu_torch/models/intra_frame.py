@@ -34,6 +34,11 @@ def _hadamard(n: int) -> np.ndarray:
     return h
 
 
+@lru_cache(maxsize=8)
+def _hadamard_dev(n: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(_hadamard(n).astype(np.float32)).to(device)
+
+
 def first_argmin(x: torch.Tensor, dim: int) -> torch.Tensor:
     """argmin that returns the FIRST minimal index on ties, on every
     device (numpy/jnp semantics, spelled out instead of relied upon)."""
@@ -85,6 +90,11 @@ def _weights_dev(S: int, fast: bool, device: str) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(Wm)).to(device)
 
 
+@lru_cache(maxsize=8)
+def _fast_modes_dev(device: str) -> torch.Tensor:
+    return torch.from_numpy(_FAST_MODES).to(device)
+
+
 def frame_intra_analysis(y: torch.Tensor, S: int = 16,
                          lambda_bits: float = 2.0,
                          fast: bool = False,
@@ -116,7 +126,7 @@ def frame_intra_analysis(y: torch.Tensor, S: int = 16,
     resid = preds - blocks[:, None, :]                       # [nB, nm, S²]
     # SATD over 8x8 tiles via Hadamard matmuls
     k = 8 if S >= 8 else 4
-    h = torch.from_numpy(_hadamard(k).astype(np.float32)).to(dev)
+    h = _hadamard_dev(k, str(dev))
 
     def had(x, lead):
         r = x.reshape((-1,) + lead + (S // k, k, S // k, k))
@@ -143,7 +153,7 @@ def frame_intra_analysis(y: torch.Tensor, S: int = 16,
         cost = cost + psy * (e_src[:, None] - e_pred).abs()
     best = first_argmin(cost, 1)
     if fast:
-        best = torch.from_numpy(_FAST_MODES).to(dev)[best]
+        best = _fast_modes_dev(str(dev))[best]
     return best.to(torch.int32), cost.amin(dim=1)
 
 
@@ -162,20 +172,26 @@ def _batched_analysis(S: int, fast: bool = False, psy: float = 0.0):
 def submit_intra_analysis_batch(srcs, width: int, height: int,
                                 cu_log2: int = 4, fast: bool = False,
                                 psy: float = 0.0, device=None):
-    """The analysis of a whole batch of frames (the leaf B pictures of a
-    mini-GOP); returns one submit_intra_analysis handle per frame."""
+    """The analysis of a whole batch of frames (a chunk of the all-intra
+    path, the leaf B pictures of a mini-GOP); returns one
+    submit_intra_analysis handle per frame. Everything is enqueued and
+    nothing waits for the device: the batch's luma planes cross the bus
+    in one copy from page-locked memory (a copy from pageable memory would
+    first wait for the work already queued), and every constant the
+    analysis needs is cached on the device."""
     from x265_tpu_torch.engine.planes import pad_dev
-    from x265_tpu_torch.utils import devcache
     device = resolve_device(device)
     S = 1 << cu_log2
     ph = -(-height // S) * S
     pw = -(-width // S) * S
-    ys = []
-    for s_ in srcs:
-        arr = np.asarray(s_)
-        bd = 8 if arr.dtype == np.uint8 else 10
-        ys.append(pad_dev(devcache.src_plane(arr, bd, device),
-                          (0, ph - height, 0, pw - width)))
+    wire = np.uint8 if max(int(np.asarray(s_).max(initial=0))
+                           for s_ in srcs) < 256 else np.int16
+    host = torch.from_numpy(np.stack([np.asarray(s_, dtype=wire)
+                                      for s_ in srcs]))
+    if device.type == "cuda":
+        host = host.pin_memory()
+    planes = host.to(device, non_blocking=True).to(torch.int16)
+    ys = [pad_dev(y, (0, ph - height, 0, pw - width)) for y in planes]
     modes_dev, cost_dev = _batched_analysis(S, fast, float(psy))(ys)
     return [(modes_dev[i], cost_dev[i], cu_log2, width, height)
             for i in range(len(srcs))]

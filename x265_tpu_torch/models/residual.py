@@ -13,10 +13,11 @@ Kernels are batched over TUs of one static size; per-TU QP is a tensor.
 The transforms' matrix products run in float64: CUDA has no integer
 matmul, and every accumulator below is an integer under 2^31 (bounds in
 the docstrings), far inside float64's 2^53 exact range, so the products
-are exact whatever order the library sums in. Everything else is int32.
+are exact whatever order the library sums in. The integer RDOQ
+(_rdoq_x64) accumulates its costs in int64, which torch has on every
+device. Everything else is int32.
 
-Not ported yet: the integer RDOQ (_rdoq_x64) and the scaling-list
-int64 dequant path; do_rdoq=True and scaling=True raise.
+Not ported yet: the scaling-list dequant path; scaling=True raises.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import torch
 
 from x265_tpu_torch.ops.ref.transform import DCT, DST4
 from x265_tpu_torch.hevc.tables import (
-    QUANT_SCALES, DEQUANT_SCALES, SCANS,
+    QUANT_SCALES, DEQUANT_SCALES, RDOQ_LAM32, RDOQ_LAM32_FULL, SCANS,
 )
 
 
@@ -43,8 +44,10 @@ def _tmat_dev(n: int, dst: bool, device: str) -> torch.Tensor:
 
 @lru_cache(maxsize=64)
 def _table_dev(name: str, device: str) -> torch.Tensor:
-    tab = {"quant": QUANT_SCALES, "dequant": DEQUANT_SCALES}[name]
-    return torch.tensor(np.asarray(tab, np.int32), device=device)
+    tab = {"quant": QUANT_SCALES, "dequant": DEQUANT_SCALES,
+           "lam": RDOQ_LAM32, "lam_full": RDOQ_LAM32_FULL}[name]
+    dt = np.int64 if name.startswith("lam") else np.int32
+    return torch.tensor(np.asarray(tab, dt), device=device)
 
 
 def _rshift_round(x, s):
@@ -152,6 +155,131 @@ def dequantize_b(lvl: torch.Tensor, qp: torch.Tensor, n: int,
     return d.clamp(-32768, 32767).to(torch.int32)
 
 
+def _ilog2(l: torch.Tensor) -> torch.Tensor:
+    """floor(log2(l)) for l >= 1, exact (threshold-count form)."""
+    lg = torch.zeros_like(l)
+    for k in range(1, 16):
+        lg = lg + (l >= (1 << k)).to(l.dtype)
+    return lg
+
+
+def _rdoq_x64(coeff, lvl, qp, n, bd, scaling: bool = False,
+              is_intra: bool = False, consts=None, psy_fx: int = 0):
+    """int64 body of rdoq_b (the JAX package traces it under x64; torch
+    has int64 on every device, so nothing is switched here).
+
+    consts: optional [8] int32 Q15 fractional-bit constants
+    (hevc.rate_model estBit analog) for the batch's plane; None keeps
+    the static bin-count model.
+
+    psy_fx: Q8 psy-rdoq strength — AC coefficients earn an energy
+    credit (psy_fx * 32 * |dequant(l)|) >> 8 (quant.cpp:610 psy path,
+    luma only; matches ops/ref/transform.rdoq bit-exactly)."""
+    if scaling:
+        raise NotImplementedError("scaling lists are not ported yet")
+    log2 = n.bit_length() - 1
+    qp = qp.to(torch.int32)
+    per = torch.div(qp, 6, rounding_mode="floor")
+    rem = qp - per * 6
+    bs = bd + log2 - 5
+    tr_shift = 15 - bd - log2
+    dev = str(coeff.device)
+    # estBit path: real fractional bits get the full lambda2; the
+    # static bin-count model keeps its 0.4-calibrated table
+    lam_tab = _table_dev("lam" if consts is None else "lam_full", dev)
+    lam_fx = (lam_tab[qp.long()] << (2 * tr_shift))[:, None, None]
+    c = coeff.to(torch.int64)
+    sgn = torch.sign(lvl).to(torch.int64)
+    l0 = lvl.abs().to(torch.int64)
+
+    def deq(l):
+        return _deq_core(l.to(torch.int32), per, rem, bs,
+                         rounded=False).to(torch.int64)
+
+    if consts is not None:
+        K = consts.to(device=coeff.device, dtype=torch.int64)
+
+        def rcost(l):
+            # shared estBit formula (hevc/rate_model.py module doc)
+            esc = (l - 5).clamp(min=1)
+            lg = _ilog2(esc)
+            remb = torch.where(l < 6, (l - 2).clamp(min=0) << 15,
+                               (4 + 2 * lg) << 15)
+            rf = torch.where(
+                l == 0, K[0],
+                K[1] + 32768 + torch.where(
+                    l == 1, K[2],
+                    K[3] + torch.where(l == 2, K[4], K[5] + remb)))
+            return (lam_fx * rf) >> 15
+
+        cg_gain = K[7] - K[6]
+    else:
+        def rcost(l):
+            r = torch.where(l > 0, 3, 1).to(torch.int64)
+            lg = _ilog2(l.clamp(min=1))
+            return lam_fx * (r + torch.where(l > 1, 2 + 2 * lg,
+                                             torch.zeros_like(lg)))
+
+    if psy_fx:
+        ac = torch.ones((1, n, n), dtype=torch.bool, device=coeff.device)
+        ac[0, 0, 0] = False
+
+        def credit(l):
+            return torch.where(ac, (psy_fx * 32 * deq(l)) >> 8,
+                               torch.zeros_like(l))
+    else:
+        def credit(l):
+            return 0
+
+    def cost(l):
+        e = c - sgn * deq(l)
+        return 32 * e * e + rcost(l) - credit(l)
+
+    best_l = l0
+    best = cost(l0)
+    for cand in ((l0 - 1).clamp(min=0), torch.zeros_like(l0)):
+        cc = cost(cand)
+        take = cc < best
+        best = torch.where(take, cc, best)
+        best_l = torch.where(take, cand, best_l)
+    out = sgn * best_l
+
+    # CG zeroing: 32*(d_zero - d_now) < rate saved by coding csbf=0
+    ncg = n // 4
+    l_abs = out.abs()
+    e_now = c - torch.sign(out) * deq(l_abs)
+
+    def cg_sum(x):
+        return x.reshape(-1, ncg, 4, ncg, 4).sum(dim=(2, 4))
+
+    d_zero = cg_sum(c * c)
+    d_now = cg_sum(e_now * e_now)
+    r_now = cg_sum(rcost(l_abs))
+    if psy_fx:
+        r_now = r_now - cg_sum(credit(l_abs))
+    any_nz = cg_sum(l_abs) > 0
+    # lam_fx is [N,1,1], broadcasting over the [N,ncg,ncg] CG grid
+    if consts is not None:
+        save = r_now + ((lam_fx * cg_gain) >> 15)
+    else:
+        save = r_now - lam_fx
+    zero_cg = any_nz & (32 * (d_zero - d_now) < save)
+    z = zero_cg[:, :, None, :, None]
+    out5 = out.reshape(-1, ncg, 4, ncg, 4)
+    out5 = torch.where(z, torch.zeros_like(out5), out5)
+    return out5.reshape(-1, n, n).to(torch.int32)
+
+
+def rdoq_b(coeff, lvl, qp, n: int, bd: int, scaling: bool = False,
+           is_intra: bool = False, consts=None, psy_fx: int = 0):
+    """Batched integer RDOQ (bit-exact vs rdoq_adjust / oracle rdoq).
+    consts: None, or an [8] int32 tensor or array."""
+    if consts is not None and not isinstance(consts, torch.Tensor):
+        consts = torch.from_numpy(np.asarray(consts, np.int32))
+    return _rdoq_x64(coeff, lvl, qp, n, bd, scaling, is_intra, consts,
+                     psy_fx)
+
+
 @lru_cache(maxsize=16)
 def _scans_dev(n: int, device: str) -> torch.Tensor:
     log2 = n.bit_length() - 1
@@ -215,10 +343,11 @@ def _tq_chain(resi: torch.Tensor, qp: torch.Tensor, scan_sel: torch.Tensor,
     if lossless:
         cbf = (resi != 0).any(dim=2).any(dim=1)
         return resi, resi, cbf
-    if do_rdoq:
-        raise NotImplementedError("RDOQ is not ported yet")
     cf = fwd_transform_b(resi, n, dst, bd)
     lvl = quantize_b(cf, qp, n, is_intra, bd, scaling)
+    if do_rdoq:
+        lvl = _rdoq_x64(cf, lvl, qp, n, bd, scaling, is_intra, consts,
+                        psy_fx)
     if sdh:
         nzb = (lvl != 0).any(dim=2).any(dim=1)
         lvl = torch.where(nzb[:, None, None], sbh_b(lvl, scan_sel, n), lvl)

@@ -81,8 +81,9 @@ def make_cut_clip(w, h, n, seed, cut):
     return frames
 
 
-# ---- bench.py's 1080p clip ----------------------------------------------
-# A copy of tools/make_clips.py's clip_crowd1080 and its helpers: that file
+# ---- bench.py's 1080p and 720p clips -------------------------------------
+# A copy of tools/make_clips.py's clip_crowd1080, clip_pan and their
+# helpers: that file
 # writes Y4M through the JAX package and so imports jax, which a machine
 # with only the port does not have. Same seeds, same pictures.
 
@@ -156,6 +157,32 @@ def clip_crowd1080(W=1920, H=1080, n=32, seed=40):
         yield _to420(yf, cbf, crf)
 
 
+def clip_pan(W=1280, H=720, n=50, speed=(1.3, 2.7), seed=10):
+    """Textured landscape, constant subpixel pan + two moving objects —
+    bench.py's 720p clip (a generator of (y, cb, cr) frames)."""
+    rng = np.random.default_rng(seed)
+    MH, MW = H + 200, W + 200
+    master_y = value_noise(rng, MH, MW) * 200 + 28
+    master_cb = value_noise(rng, MH, MW, (8, 24), (1.0, 0.4)) * 90 + 83
+    master_cr = value_noise(rng, MH, MW, (6, 20), (1.0, 0.4)) * 90 + 83
+    obj = value_noise(rng, 96, 128) * 160 + 60
+    obj2 = value_noise(rng, 64, 64) * 160 + 48
+    grain = rng.standard_normal((4, H, W)) * 1.2
+    for i in range(n):
+        oy = 10 + speed[0] * i
+        ox = 10 + speed[1] * i
+        yf = _sample(master_y, oy, ox, H, W).copy()
+        cbf = _sample(master_cb, oy, ox, H, W)
+        crf = _sample(master_cr, oy, ox, H, W)
+        # objects move against the pan
+        o1y, o1x = int(180 + 0.8 * i), int(200 + 6.0 * i) % (W - 128)
+        yf[o1y:o1y + 96, o1x:o1x + 128] = obj
+        o2y, o2x = int(420 + 2.5 * i) % (H - 64), int(900 - 4.0 * i) % (W - 64)
+        yf[o2y:o2y + 64, o2x:o2x + 64] = obj2
+        yf += grain[i % 4]
+        yield _to420(yf, cbf, crf)
+
+
 # ---- golden streams -------------------------------------------------------
 # Small seeded encodes whose stream digests (SHA-256 of the JAX package's
 # stream, which the port reproduces byte for byte on the CPU) are kept in
@@ -193,12 +220,27 @@ GOLDEN_CASES = {
     "fast_crf": ("fast", None, {"crf": "28"}, "make_clip", 2),
     "medium_crf_cut": ("medium", None, {"crf": "28"}, "make_cut_clip", 2),
     "medium_abr": ("medium", None, {"bitrate": "100"}, "make_clip", 3),
+    # all-intra (keyint 1: the pipelined path of Encoder.encode): bench.py
+    # config 1's lossless, and CRF under medium, whose rd 3 runs the
+    # intra 32x32 promotion inside the pipeline
+    "ultrafast_lossless_allintra": (
+        "ultrafast", None, {"lossless": "1", "keyint": "1"}, "make_clip", 4),
+    "medium_allintra_crf": (
+        "medium", None, {"keyint": "1", "crf": "28"}, "make_cut_clip", 5),
+    # lossless with P and B pictures (transquant bypass on the device's
+    # inter residual); x265's slow preset: RDOQ 2, rd 4, the explicit
+    # inter RQT, the dense star search over 4 references, subme 3
+    "fast_lossless": ("fast", None, {"lossless": "1"}, "make_clip", 6),
+    "slow_crf": ("slow", None, {"crf": "28"}, "make_clip", 7),
 }
 GOLDEN_SIZE = (192, 128, 5)          # width, height, frames
 GOLDEN_CUT = 3                       # the scene cut of make_cut_clip cases
 # cases of their own length (two mini-GOPs of B frames) and scene cut
 GOLDEN_FRAMES = {"fast_crf": (11, None), "medium_crf_cut": (11, 7),
-                 "medium_abr": (11, None)}
+                 "medium_abr": (11, None), "slow_crf": (11, None)}
+# cases whose stream is Encoder.encode's (the all-intra pipelined path),
+# not headers + encode_frame per picture + flush
+GOLDEN_PIPELINED = ("ultrafast_lossless_allintra", "medium_allintra_crf")
 
 
 def golden_clip(name):
@@ -218,6 +260,32 @@ def golden_params(name, params_module):
         params_module.param_parse(p, k, v)
     p.width, p.height = GOLDEN_SIZE[:2]
     return p
+
+
+def golden_stream(enc, name, frames):
+    """(stream, per-picture QP maps) of a golden case through the entry
+    point its digest records: Encoder.encode for GOLDEN_PIPELINED, else
+    headers, encode_frame per picture and flush. A recon sink already on
+    the encoder still receives every picture."""
+    qp_maps = []
+
+    def note_qp():
+        q = enc._last_analysis.qp_map
+        qp_maps.append(None if q is None else q.astype(int).tolist())
+    if name in GOLDEN_PIPELINED:
+        sink = enc.recon_sink
+
+        def on_picture(idx, planes):
+            note_qp()
+            if sink is not None:
+                sink(idx, planes)
+        enc.recon_sink = on_picture
+        return enc.encode(frames), qp_maps
+    stream = enc.headers()
+    for f in frames:
+        stream += enc.encode_frame(*f)
+        note_qp()
+    return stream + enc.flush(), qp_maps
 
 
 def golden_digests():
