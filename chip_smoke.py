@@ -18,16 +18,21 @@ ABR, 25 fps: B frames placed by b-adapt 2, the B-pyramid, bi-prediction)
 and x265's slow preset under the same rate control (RDOQ, rd 4, the
 explicit inter RQT, the dense star search over four references); at
 1280x720 bench.py's config 1 (all-intra lossless, the pipelined path),
-decoded back to the source itself — and checks that each went through
-every kernel of its path. One JSON line per phase; any failure ends the
+decoded back to the source itself; at 3840x2160 BASELINE config 4
+(Main10 under the slow preset with the default scaling lists and the
+HDR10 and HDR10+ metadata) — and checks that each went through every
+kernel of its path. Every kernel is held on 8-bit and on 10-bit samples. One JSON line per phase; any failure ends the
 run with a non-zero exit code and no result line.
 """
 import contextlib
 import ctypes
 import hashlib
 import json
+import os
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,10 +50,12 @@ from x265_tpu_torch.engine import lookahead, me
 from x265_tpu_torch.models import inter_residual, intra_frame
 from x265_tpu_torch.ops import cuda_build, cuda_kernels, cuda_mc
 from x265_tpu_torch.hevc.bitstream import NAL_TRAIL_R, split_annexb
+from x265_tpu_torch.hevc.sei import (SEI_CONTENT_LIGHT_LEVEL,
+                                     SEI_MASTERING_DISPLAY)
 from x265_tpu_torch.utils import devcache, profiling, testclip
 from x265_tpu_torch.utils.convert import interp_filters
 from x265_tpu_torch.utils.testclip import (clip_crowd1080, clip_pan,
-                                            make_clip, make_cut_clip,
+                                            lift10, make_clip, make_cut_clip,
                                             make_ramp_clip)
 from x265_tpu_torch import native
 
@@ -56,6 +63,7 @@ DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT_OPS_PER_S = 67e12          # non-tensor-core 32-bit rate, same sheet
 W, H = 1920, 1080
+W4K, H4K = 3840, 2160
 FAR = [1 << 20, -(1 << 20), -1, 5]    # origins far outside a plane
 
 
@@ -219,6 +227,24 @@ def slow_params(w, h):
     cu-tree, weightp."""
     p = param_default_preset("slow")
     param_parse(p, "bitrate", "4000")
+    p.width, p.height = w, h
+    p.fps_num, p.fps_den = 25, 1
+    return p
+
+
+def main10_params(w, h, dhdr10_path):
+    """BASELINE config 4: x265's slow preset at output-depth 10 (Main10)
+    with the default scaling lists, --hdr10 (BT.2020, PQ), --hdr10-opt
+    (AQ's luma-banded bias), the mastering display and content light
+    level of tests/test_hdr10.py, HDR10+ metadata from a file with
+    --dhdr10-opt, 25 fps; rate control at the preset's default (CRF 28)."""
+    p = param_default_preset("slow")
+    for k, v in (("output-depth", "10"), ("scaling-list", "default"),
+                 ("hdr10", "1"), ("hdr10-opt", "1"),
+                 ("master-display", testclip.MASTER_DISPLAY),
+                 ("max-cll", "1000,400"), ("dhdr10-info", dhdr10_path),
+                 ("dhdr10-opt", "1")):
+        param_parse(p, k, v)
     p.width, p.height = w, h
     p.fps_num, p.fps_den = 25, 1
     return p
@@ -392,13 +418,12 @@ def coherent_lanes(rng, R):
     return patch, subpel
 
 
-def adopt_lanes(rng):
+def adopt_lanes(rng, nby=68, nbx=120):
     """The merge adoption's configurations at 1080p (models/rdo.py
-    _adopt_costs): every 16x16 block of the frame under its own motion
-    and reference, then under each of four frame-dominant tuples; lanes
-    are configuration-major, blocks in raster order. Returns (x, y, mv
-    [L,2] quarter-pel, ref) as numpy arrays."""
-    nby, nbx = 68, 120
+    _adopt_costs; 135 x 240 blocks at 2160p): every 16x16 block of the
+    frame under its own motion and reference, then under each of four
+    frame-dominant tuples; lanes are configuration-major, blocks in raster
+    order. Returns (x, y, mv [L,2] quarter-pel, ref) as numpy arrays."""
     by, bx = np.divmod(np.arange(nby * nbx), nbx)
     own = rng.integers(-6, 7, (nby * nbx, 2)) + np.array([37, -22])
     tuples = ([37, -22, 0], [36, -20, 0], [0, 0, 1], [40, -24, 2])
@@ -539,7 +564,7 @@ def local_main_case(rng):
     w = args_for(cropped_plane(1023), rnd, maxv=1023)   # the int16 path
     _, err = check_local("main path, random centres", a)
     check_local("main path, coherent centres", c)
-    check_local("main path, 10-bit samples", w)
+    _, err10 = check_local("main path, 10-bit samples", w)
     # me._local_search on the card is this one launch and nothing else
     cuda_mc.reset_launches()
     mv, _ = me._local_search(a[0], ref, a[4], to_dev(np.stack([bx, by], 1)),
@@ -556,7 +581,7 @@ def local_main_case(rng):
     return dict(
         shape=(f"cur[{N},16,16] i32 ref_pad[{Hr},{Wr}] i16 (a crop, "
                f"pitch {Wr + 12}) W_r=7"),
-        max_abs_err=err,
+        max_abs_err=err, max_abs_err_10bit=err10,
         ms=time_ms(lambda: cuda_kernels.sad_local_argmin(*a)),
         cold_l2_ms=time_cold_ms(lambda: cuda_kernels.sad_local_argmin(*a)),
         coherent_ms=time_ms(lambda: cuda_kernels.sad_local_argmin(*c)),
@@ -616,6 +641,15 @@ def kernel_phase():
     err = check_equal("mc_gather_interp",
                       cuda_mc.mc_gather_interp(planes_y, *a),
                       cuda_mc.mc_gather_interp_plain(planes_y, *a))
+    # every timed shape is held on 10-bit samples too (bd=10: the first
+    # pass shifted by bd - 8)
+    planes_y10 = torch.from_numpy(
+        rng.integers(0, 1024, (2, Hp, Wp)).astype(np.int16)).to(DEV)
+    a10 = a[:-1] + (10,)
+    err10 = check_equal("mc_gather_interp, 10-bit samples",
+                        cuda_mc.mc_gather_interp(planes_y10, *a10),
+                        cuda_mc.mc_gather_interp_plain(planes_y10, *a10))
+    del planes_y10
     # the same lanes as the encoder orders them: blocks in raster order
     # around a smooth quarter-pel field (plane padded by 80)
     by, bx = np.divmod(np.arange(N), W // 16)
@@ -628,6 +662,7 @@ def kernel_phase():
                 cuda_mc.mc_gather_interp_plain(planes_y, *ac))
     rows["mc_gather_interp"] = dict(
         shape=f"planes[2,{Hp},{Wp}] N={N} n=16 taps=8", max_abs_err=err,
+        max_abs_err_10bit=err10,
         ms=time_ms(lambda: cuda_mc.mc_gather_interp(planes_y, *a)),
         cold_l2_ms=time_cold_ms(
             lambda: cuda_mc.mc_gather_interp(planes_y, *a)),
@@ -645,6 +680,10 @@ def kernel_phase():
         rng.integers(0, 256, (3, Hp, Wp)).astype(np.int16)).to(DEV)
     refs_c = torch.from_numpy(rng.integers(
         0, 256, (3, H // 2 + 80, W // 2 + 80)).astype(np.int16)).to(DEV)
+    refs10 = (torch.from_numpy(rng.integers(
+        0, 1024, (3, Hp, Wp)).astype(np.int16)).to(DEV),
+        torch.from_numpy(rng.integers(
+            0, 1024, (3, H // 2 + 80, W // 2 + 80)).astype(np.int16)).to(DEV))
     ax, ay, amv, aref = adopt_lanes(rng)
     px, py, pmv, pref = promo_lanes(rng, 64)
     qq = np.arange(4)
@@ -665,11 +704,16 @@ def kernel_phase():
         err = check_equal(f"mc_gather_interp {key or 'rd_promote'} n={n_} "
                           f"taps={taps}", cuda_mc.mc_gather_interp(pl, *a),
                           cuda_mc.mc_gather_interp_plain(pl, *a))
+        pl10, a10 = refs10[int(is_c)], a[:-1] + (10,)
+        err10 = check_equal(f"mc_gather_interp {key or 'rd_promote'} "
+                            f"n={n_} taps={taps}, 10-bit samples",
+                            cuda_mc.mc_gather_interp(pl10, *a10),
+                            cuda_mc.mc_gather_interp_plain(pl10, *a10))
         if key is None:
             continue
         rows["mc_gather_interp"][key] = dict(
             shape=f"planes[3,{pl.shape[1]},{pl.shape[2]}] N={N_} n={n_} "
-                  f"taps={taps}", max_abs_err=err,
+                  f"taps={taps}", max_abs_err=err, max_abs_err_10bit=err10,
             ms=time_ms(lambda: cuda_mc.mc_gather_interp(pl, *a)),
             cold_l2_ms=time_cold_ms(lambda: cuda_mc.mc_gather_interp(pl, *a)),
             plain_ms=time_ms(lambda: cuda_mc.mc_gather_interp_plain(pl, *a),
@@ -705,7 +749,30 @@ def kernel_phase():
             bytes=(gather_bytes(pl.numel(), N, side, N * n_ * n_, 5)
                    + filt.numel() * 4),
             ops=N * 2 * taps * (side * n_ + n_ * n_))
-    del refs_y, refs_c
+    del refs_y, refs_c, refs10
+    # BASELINE config 4's merge adoption at 2160p on 10-bit planes: every
+    # 16x16 luma block of the frame under five configurations (162,000
+    # lanes) from three reference planes padded by 80, bd=10
+    nby4, nbx4 = H4K // 16, W4K // 16
+    refs4k = torch.from_numpy(rng.integers(
+        0, 1024, (3, H4K + 160, W4K + 160)).astype(np.int16)).to(DEV)
+    lanes4k = adopt_lanes(rng, nby4, nbx4)
+    a = (*mc_lanes(*lanes4k, 80, False), luma, 16, 8, 10)
+    N_, side = len(lanes4k[0]), 23
+    err = check_equal("mc_gather_interp rd_adopt_luma_2160p_main10",
+                      cuda_mc.mc_gather_interp(refs4k, *a),
+                      cuda_mc.mc_gather_interp_plain(refs4k, *a))
+    rows["mc_gather_interp"]["rd_adopt_luma_2160p_main10"] = dict(
+        shape=f"planes[3,{H4K + 160},{W4K + 160}] 10-bit N={N_} n=16 "
+              "taps=8 bd=10", max_abs_err=err,
+        ms=time_ms(lambda: cuda_mc.mc_gather_interp(refs4k, *a)),
+        cold_l2_ms=time_cold_ms(lambda: cuda_mc.mc_gather_interp(refs4k, *a)),
+        plain_ms=time_ms(lambda: cuda_mc.mc_gather_interp_plain(refs4k, *a),
+                         3),
+        bytes=(gather_bytes(refs4k.numel(), N_, side, N_ * 256, 5)
+               + luma.numel() * 4),
+        ops=N_ * 2 * 8 * (side * 16 + 256))
+    del refs4k, a
 
     # --- the two gathers and the fused gather + SATD: edge cases --------
     gather_edge_cases(rng)
@@ -737,10 +804,16 @@ def kernel_phase():
         err = check_equal(f"tile_gather rd_adopt n={n}",
                           cuda_mc.tile_gather(src, oy, ox, n),
                           cuda_mc.tile_gather_plain(src, oy, ox, n))
+        src10 = torch.from_numpy(
+            rng.integers(0, 1024, (hs, ws)).astype(np.int16)).to(DEV)
+        err10 = check_equal(f"tile_gather rd_adopt n={n}, 10-bit samples",
+                            cuda_mc.tile_gather(src10, oy, ox, n),
+                            cuda_mc.tile_gather_plain(src10, oy, ox, n))
         idx = cuda_mc._window_index(oy, ox, n, hs, ws)
         flat = src.reshape(-1)
         row = dict(
             shape=f"plane[{hs},{ws}] N={N} n={n}", max_abs_err=err,
+            max_abs_err_10bit=err10,
             ms=time_ms(lambda: cuda_mc.tile_gather(src, oy, ox, n)),
             cold_l2_ms=time_cold_ms(
                 lambda: cuda_mc.tile_gather(src, oy, ox, n)),
@@ -766,6 +839,12 @@ def kernel_phase():
     err = check_equal("tile_gather_planes",
                       cuda_mc.tile_gather_planes(pp, ridx, oy, ox, n),
                       cuda_mc.tile_gather_planes_plain(pp, ridx, oy, ox, n))
+    pp10 = torch.from_numpy(
+        rng.integers(0, 1024, (16, Hm, Wm)).astype(np.int16)).to(DEV)
+    err10 = check_equal(
+        "tile_gather_planes, 10-bit samples",
+        cuda_mc.tile_gather_planes(pp10, ridx, oy, ox, n),
+        cuda_mc.tile_gather_planes_plain(pp10, ridx, oy, ox, n))
     idx = (cuda_mc._window_index(oy, ox, n, Hm, Wm)
            + ridx.long()[:, None, None] * (Hm * Wm))
     flat = pp.reshape(-1)
@@ -774,6 +853,7 @@ def kernel_phase():
                 cuda_mc.tile_gather_planes_plain(pp, *co3, n))
     rows["tile_gather_planes"] = dict(
         shape=f"planes[16,{Hm},{Wm}] N={N} n=16", max_abs_err=err,
+        max_abs_err_10bit=err10,
         ms=time_ms(lambda: cuda_mc.tile_gather_planes(pp, ridx, oy, ox, n)),
         cold_l2_ms=time_cold_ms(
             lambda: cuda_mc.tile_gather_planes(pp, ridx, oy, ox, n)),
@@ -818,11 +898,17 @@ def kernel_phase():
     check_equal("tile_gather_planes_satd, coherent lanes",
                 cuda_mc.tile_gather_planes_satd(*fc),
                 cuda_mc.tile_gather_planes_satd_plain(*fc))
+    f10 = (pp10, ridx, oy, ox,
+           rnd_i32(rng, 0, 1024, Nb * n * n).reshape(Nb, n, n), n)
+    err10 = check_equal("tile_gather_planes_satd, 10-bit samples",
+                        cuda_mc.tile_gather_planes_satd(*f10),
+                        cuda_mc.tile_gather_planes_satd_plain(*f10))
+    del pp10, f10
     # least traffic: the windows, three index arrays, the current blocks
     # once, one int32 a lane; per 8x8 block the operations of the SATD row
     rows["tile_gather_planes_satd"] = dict(
         shape=f"planes[16,{Hm},{Wm}] cur[{Nb},16,16] i32 K={K} n=16",
-        max_abs_err=err,
+        max_abs_err=err, max_abs_err_10bit=err10,
         ms=time_ms(lambda: cuda_mc.tile_gather_planes_satd(*fa)),
         cold_l2_ms=time_cold_ms(
             lambda: cuda_mc.tile_gather_planes_satd(*fa)),
@@ -844,9 +930,16 @@ def kernel_phase():
     b_ = rnd_i32(rng, 0, 256, N * S * S).reshape(N, S, S)
     err = check_equal("satd8x8", cuda_kernels.satd(a_, b_),
                       cuda_kernels.satd_plain(a_, b_))
+    a10 = rnd_i32(rng, 0, 1024, N * S * S).reshape(N, S, S)
+    b10 = rnd_i32(rng, 0, 1024, N * S * S).reshape(N, S, S)
+    err10 = check_equal("satd8x8, 10-bit samples",
+                        cuda_kernels.satd(a10, b10),
+                        cuda_kernels.satd_plain(a10, b10))
+    del a10, b10
     # per 8x8 block: 64 subtractions, 2*8*24 butterfly adds, 64 abs-adds
     rows["satd8x8"] = dict(
         shape=f"a,b[{N},16,16] int32", max_abs_err=err,
+        max_abs_err_10bit=err10,
         ms=time_ms(lambda: cuda_kernels.satd(a_, b_)),
         plain_ms=time_ms(lambda: cuda_kernels.satd_plain(a_, b_), 5),
         bytes=2 * N * S * S * 4 + N * 4, ops=N * 4 * (64 + 384 + 64),
@@ -880,7 +973,10 @@ def kernel_phase():
         bytes=2 * nl * 64 * 4 + nl * 4, ops=nl * (64 + 384 + 64))
 
     # --- sad_sweep / sad_sweep_argmin: the dense integer search ----------
-    def sweep_case(name, h, w, S, R, flat=False, zero_cost=False, maxv=255):
+    def sweep_case(name, h, w, S, R, flat=False, zero_cost=False, maxv=255,
+                   dark_cols=0):
+        """dark_cols: the reference's first columns below 256 (a dark
+        region of a 10-bit picture: the CTAs there take the byte path)."""
         n = 2 * R + 1
         if flat:
             cur = torch.full((h, w), 99, dtype=torch.int16, device=DEV)
@@ -889,6 +985,7 @@ def kernel_phase():
         else:
             ref = torch.from_numpy(rng.integers(
                 0, maxv + 1, (h + 2 * R, w + 2 * R)).astype(np.int16)).to(DEV)
+            ref[:, :dark_cols] %= 250
             # the current plane is the reference moved by (1, -2) plus
             # noise, so minima are interior and near-ties are common
             noise = torch.from_numpy(
@@ -928,8 +1025,8 @@ def kernel_phase():
     # main-path shape: the HME level of a 1080p P frame
     h, w, S, R = 544, 960, 8, 29
     cur, ref, mvc, n, e1, e2 = sweep_case("HME 544x960", h, w, S, R)
-    cur_w, ref_w = sweep_case("HME 544x960, 10-bit samples", h, w, S, R,
-                              maxv=1023)[:2]            # the int16 path
+    cur_w, ref_w, _m, _n, e1w, e2w = sweep_case(
+        "HME 544x960, 10-bit samples", h, w, S, R, maxv=1023)  # int16 path
     nb = (h // S) * (w // S)
     planes_bytes = (cur.numel() + ref.numel()) * 2
     # per absolute difference: a subtract, an absolute value, an add
@@ -941,10 +1038,11 @@ def kernel_phase():
         plain_ms=time_ms(
             lambda: cuda_kernels.sad_sweep_plain(cur, ref, S, R), 2),
         wide_ms=time_ms(lambda: cuda_kernels.sad_sweep(cur_w, ref_w, S, R), 5),
-        diffs=n * n * h * w,
+        max_abs_err_10bit=e1w, diffs=n * n * h * w,
         bytes=planes_bytes + n * n * nb * 4, ops=sweep_ops, library_ms=None)
     rows["sad_sweep_argmin"] = dict(
         shape=shape + f" mvcost[{n * n}] f32", max_abs_err=e2,
+        max_abs_err_10bit=e2w,
         ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R),
                    10),
         cold_l2_ms=time_cold_ms(
@@ -965,11 +1063,13 @@ def kernel_phase():
                zero_cost=True)
     cur, ref, mvc, n, _e1, e2 = sweep_case("lookahead 544x960", h, w, S, R,
                                            zero_cost=True)
+    e10 = sweep_case("lookahead 544x960, 10-bit samples", h, w, S, R,
+                     zero_cost=True, maxv=1023)[5]
     nb = (h // S) * (w // S)
     rows["sad_sweep_argmin"]["lookahead"] = dict(
         shape=f"cur[{h},{w}] ref_pad[{h + 2 * R},{w + 2 * R}] i16 S=8 R=4 "
               f"mvcost[{n * n}] zeros",
-        max_abs_err=e2,
+        max_abs_err=e2, max_abs_err_10bit=e10,
         ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R),
                    10),
         cold_l2_ms=time_cold_ms(
@@ -989,11 +1089,13 @@ def kernel_phase():
                zero_cost=True)
     cur, ref, mvc, n, _e1, e2 = sweep_case("slicetype 544x960", h, w, S, R,
                                            zero_cost=True)
+    e10 = sweep_case("slicetype 544x960, 10-bit samples", h, w, S, R,
+                     zero_cost=True, maxv=1023)[5]
     nb = (h // S) * (w // S)
     rows["sad_sweep_argmin"]["slicetype"] = dict(
         shape=f"cur[{h},{w}] ref_pad[{h + 2 * R},{w + 2 * R}] i16 S=8 R=8 "
               f"mvcost[{n * n}] zeros",
-        max_abs_err=e2,
+        max_abs_err=e2, max_abs_err_10bit=e10,
         ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R),
                    10),
         cold_l2_ms=time_cold_ms(
@@ -1013,12 +1115,14 @@ def kernel_phase():
     sweep_case("dense flat, mvcost=0", 64, 96, S, R, flat=True,
                zero_cost=True)
     cur, ref, mvc, n, _e1, e2 = sweep_case("dense 1088x1920", h, w, S, R)
+    e10 = sweep_case("dense 1088x1920, 10-bit samples", h, w, S, R,
+                     maxv=1023)[5]
     nb = (h // S) * (w // S)
     rows["sad_sweep_argmin"]["dense"] = dict(
         shape=f"cur[{h},{w}] ref_pad[{h + 2 * R},{w + 2 * R}] i16 S=16 "
               f"R=57 mvcost[{n * n}] f32 (a crop of the reference padded "
               f"by R+6 to [{h + 2 * R + 12},{w + 2 * R + 12}])",
-        max_abs_err=e2,
+        max_abs_err=e2, max_abs_err_10bit=e10,
         ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R),
                    5),
         cold_l2_ms=time_cold_ms(
@@ -1029,6 +1133,36 @@ def kernel_phase():
         bytes=(cur.numel() + ref.numel()) * 2 + n * n * 4 + nb * 8,
         ops=3 * n * n * h * w + 2 * n * n * nb)
     del cur, ref
+
+    # BASELINE config 4's dense search at 2160p on 10-bit planes (S=16,
+    # R=57). Each CTA takes the byte path when every sample it stages is
+    # below 256 (dark PQ regions) and the int16 path otherwise: held and
+    # timed on a plane whose left half is dark (ms, cold_l2_ms) and on an
+    # all-bright one (wide_ms, against wide_bound_sad_ms)
+    h, w, S, R = 2176, W4K, 16, 57
+    cur, ref, mvc, n, _e1, e2 = sweep_case(
+        "dense 2176x3840 10-bit, left half dark", h, w, S, R, maxv=1023,
+        dark_cols=w // 2)
+    cur_w, ref_w, _mvc, _n, _e1w, e2w = sweep_case(
+        "dense 2176x3840 10-bit, bright", h, w, S, R, maxv=1023)
+    nb = (h // S) * (w // S)
+    rows["sad_sweep_argmin"]["dense_2160p_main10"] = dict(
+        shape=f"cur[{h},{w}] ref_pad[{h + 2 * R},{w + 2 * R}] i16 10-bit "
+              f"(left half below 256; wide_ms: all bright) S=16 R=57 "
+              f"mvcost[{n * n}] f32",
+        max_abs_err=max(e2, e2w),
+        ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R),
+                   3),
+        cold_l2_ms=time_cold_ms(
+            lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R), 3),
+        wide_ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin(
+            cur_w, ref_w, mvc, S, R), 3),
+        plain_ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin_plain(
+            cur, ref, mvc, S, R), 1),
+        diffs=n * n * h * w,
+        bytes=(cur.numel() + ref.numel()) * 2 + n * n * 4 + nb * 8,
+        ops=3 * n * n * h * w + 2 * n * n * nb)
+    del cur, ref, cur_w, ref_w
 
     # --- sad_local_argmin: the window search around the HME centres ------
     local_edge_cases(rng)
@@ -1067,13 +1201,17 @@ OFF_PATH = {"encode_1080p": LOW_LATENCY_OFF_PATH,
             "encode_1080p_filtered": LOW_LATENCY_OFF_PATH,
             "encode_1080p_live": LOW_LATENCY_OFF_PATH,
             "encode_1080p_medium": ("sad_sweep",),
-            "encode_1080p_slow": ("sad_sweep", "sad_local_argmin")}
+            "encode_1080p_slow": ("sad_sweep", "sad_local_argmin"),
+            "encode_2160p_main10_hdr10": ("sad_sweep", "sad_local_argmin")}
 
 
 # the extra shapes a kernel is held and timed at, beside its main row
 SHAPES_ON_PATH = ("lookahead", "rd_adopt_luma", "rd_adopt_chroma",
                   "rd_promote64", "bi_residual", "bi_satd", "slicetype",
-                  "dense")
+                  "dense", "rd_adopt_luma_2160p_main10", "dense_2160p_main10")
+# the path whose dense-search launches each dense shape reports
+DENSE_PATH = {"dense": "encode_1080p_slow",
+              "dense_2160p_main10": "encode_2160p_main10_hdr10"}
 
 
 def bounds(r, cal):
@@ -1154,9 +1292,10 @@ def golden_phase():
     gold = testclip.golden_digests()
     for name in testclip.GOLDEN_CASES:
         devcache.clear()
-        enc = Encoder(testclip.golden_params(name, api_params))
         frames = testclip.golden_clip(name)
-        stream, qp_maps = testclip.golden_stream(enc, name, frames)
+        with tempfile.TemporaryDirectory() as tmp:     # fixture files
+            enc = Encoder(testclip.golden_params(name, api_params, tmp))
+            stream, qp_maps = testclip.golden_stream(enc, name, frames)
         digest = hashlib.sha256(stream).hexdigest()
         same = (digest == gold[name]["sha256"]
                 and len(stream) == gold[name]["bytes"])
@@ -1249,13 +1388,13 @@ def int_stage_launches(sink):
         me._int_stage = orig
 
 
-def plain_first_minigop(params_fn, frames):
+def plain_first_minigop(params_fn, frames, size):
     """The plain versions' stream up to the first mini-GOP that holds a B
     picture: headers, every frame through encode_frame (the I picture
     codes at once, the rest wait in b-adapt's window, which holds the
     whole clip), then flush_step until a B picture is coded. A shorter
     clip would place other mini-GOPs."""
-    enc = Encoder(params_fn(W, H))
+    enc = Encoder(params_fn(*size))
     if min(enc.param.rc_lookahead, 32) < len(frames):
         fail("the first mini-GOP check needs the whole clip in b-adapt's "
              "window")
@@ -1269,7 +1408,7 @@ def plain_first_minigop(params_fn, frames):
 
 
 def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
-              plain="prefix"):
+              plain="prefix", size=(W, H), check=None):
     """One main path: the frames through Encoder.encode with the launch
     counts set to 0 just before and read just after; then the frames
     again with the plain versions, which must give the same bytes: the
@@ -1277,10 +1416,12 @@ def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
     path with B frames, whose GOPs a shorter clip changes, the whole clip
     ("whole") or the pictures up to the first mini-GOP ("first_minigop").
     types_want: the frame types in encode order, or None for the B-frame
-    checks of check_b_structure. Returns the launch counts and the
-    launches of the integer search."""
+    checks of check_b_structure. size: (width, height); check: a function
+    of (encoder, stream) whose dict joins the phase's line (it calls fail
+    itself). Returns the launch counts and the launches of the integer
+    search."""
     devcache.clear()
-    enc = Encoder(params_fn(W, H))
+    enc = Encoder(params_fn(*size))
     by_kind = attribute_launches(enc)
     int_stage = {"launches": 0, "shapes": set()}
     profiling.reset()
@@ -1316,7 +1457,7 @@ def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
         if not report.get(st, {}).get("calls"):
             fail(f"{phase}: stage {st} never ran")
     if phase in ("encode_1080p_live", "encode_1080p_medium",
-                 "encode_1080p_slow"):
+                 "encode_1080p_slow", "encode_2160p_main10_hdr10"):
         extra.update({"frame_qps": [s["qp"] for s in enc.frame_stats],
                       "frame_pocs": [s["poc"] for s in enc.frame_stats],
                       "vbv_reencodes": enc.vbv_reencodes,
@@ -1329,7 +1470,9 @@ def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
         cl = enc._last_analysis.cu_log2_map
         extra["cu_size_share_last_frame"] = {
             str(1 << lg): float((cl == lg).mean()) for lg in (3, 4, 5, 6)}
-    if phase == "encode_1080p_slow":
+    if check is not None:
+        extra.update(check(enc, stream))
+    if phase in DENSE_PATH.values():
         if int_stage["shapes"] != {(16, 57)}:
             fail(f"{phase}: the integer search ran at {int_stage['shapes']}"
                  ", not only the dense S=16 R=57 sweep")
@@ -1342,9 +1485,9 @@ def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
         cuda_mc.reset_launches()
         if plain == "first_minigop":
             plain_stream, plain_frames = plain_first_minigop(params_fn,
-                                                             frames)
+                                                             frames, size)
         else:
-            plain_stream = Encoder(params_fn(W, H)).encode(
+            plain_stream = Encoder(params_fn(*size)).encode(
                 frames[:plain_frames])
         if any(cuda_mc.launches.values()):
             fail(f"{phase}: the plain-version run launched a kernel")
@@ -1369,6 +1512,43 @@ def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
          plain_pictures=plain_frames, plain_seconds=t_plain,
          bits=[s["bits"] for s in enc.frame_stats], **extra)
     return launches, int_stage["launches"]
+
+
+def check_main10_hdr10(phase, n):
+    """The checks of BASELINE config 4's stream: the SPS says Main10 with
+    the default scaling lists and BT.2020/PQ, the first access unit
+    carries the mastering-display and content-light SEIs of the options,
+    and every picture the HDR10+ SEI that --dhdr10-opt dictates for the
+    n entries of testclip.write_dhdr10_json."""
+    def check(enc, stream):
+        sps, first, lums = testclip.stream_hdr10(stream)
+        if not (sps.bit_depth == 10 and sps.ptl.profile_idc == 2
+                and sps.scaling_list_enabled
+                and sps.scaling_list_data is None):
+            fail(f"{phase}: the SPS is not Main10 with the default scaling "
+                 "lists")
+        if (sps.colour_primaries, sps.transfer_characteristics,
+                sps.matrix_coeffs) != (9, 16, 9):
+            fail(f"{phase}: the VUI is not BT.2020 / PQ")
+        md = first.get(SEI_MASTERING_DISPLAY)
+        cll = first.get(SEI_CONTENT_LIGHT_LEVEL)
+        if md is None or cll is None or struct.unpack(
+                ">6H2H2I", md) != (13250, 34500, 7500, 3000, 34000, 16000,
+                                   15635, 16450, 10000000, 1) \
+                or struct.unpack(">2H", cll) != (1000, 400):
+            fail(f"{phase}: mastering-display or content-light SEI wrong "
+                 "or missing")
+        types = [st["type"] for st in enc.frame_stats]
+        pocs = [st["poc"] for st in enc.frame_stats]
+        want = testclip.dhdr10_expected(types, pocs, n)
+        if types.count("I") != 1 or lums != want:
+            fail(f"{phase}: HDR10+ SEIs {lums}, --dhdr10-opt dictates "
+                 f"{want}")
+        return {"main10_scaling_lists_hdr10_checked": True,
+                "hdr10plus_luminance_by_picture": lums,
+                "decoded": "not decoded: the port's Python decoder takes "
+                           "about 8 s a 720p picture (PERF.md section 5)"}
+    return check
 
 
 def lossless_path(card):
@@ -1498,6 +1678,21 @@ def main():
          frame_pocs=[s["poc"] for s in enc.frame_stats],
          frame_qps=[s["qp"] for s in enc.frame_stats])
 
+    # Main10 with the default scaling lists (medium at its default CRF 28,
+    # B frames), decoded back by the port's decoder
+    frames = lift10(clip_crowd1080(416, 240, 11, seed=40), 40)
+    p = param_default_preset("medium")
+    param_parse(p, "output-depth", "10")
+    param_parse(p, "scaling-list", "default")
+    p.width, p.height = 416, 240
+    enc, stream, t_enc = encode_and_decode("encode_small main10", p, frames)
+    if not (enc.sps.bit_depth == 10 and enc.sps.scaling_list_enabled):
+        fail("encode_small main10: not a Main10 stream with scaling lists")
+    types, vcl = check_b_structure("encode_small main10", enc, stream)
+    emit("encode_small", config="main10", frames=len(frames),
+         bytes=len(stream), encode_seconds=t_enc, decoded_equals_recon=True,
+         types=types, frame_qps=[s["qp"] for s in enc.frame_stats])
+
     # ---- golden streams: the card against the JAX package's digests
     golden_phase()
 
@@ -1505,7 +1700,7 @@ def main():
     launches_by_path = {"encode_720p_lossless": lossless_path(card)}
     dense_by_path = {}
 
-    # ---- the main paths at 1080p through Encoder.encode: 8 frames each,
+    # ---- the main paths through Encoder.encode: at 1080p 8 frames each,
     # and 11 (an I picture and two mini-GOPs) for bench.py's config 3 and
     # for the slow preset under its rate control
     for phase, params_fn, frames, types, stages in (
@@ -1531,6 +1726,22 @@ def main():
         launches_by_path[phase], dense_by_path[phase] = main_path(
             phase, params_fn, frames, card, types, stages, plain=plain)
 
+    # ---- BASELINE config 4 at 3840x2160: Main10, slow, scaling lists,
+    # HDR10 and HDR10+ metadata (a file in a temporary directory), 11
+    # frames of bench.py's crowd clip at 4K lifted to 10 bits
+    phase, n4k = "encode_2160p_main10_hdr10", 11
+    with tempfile.TemporaryDirectory() as tmp:
+        meta = testclip.write_dhdr10_json(
+            os.path.join(tmp, "hdr10plus.json"), n4k)
+        frames = lift10(clip_crowd1080(W4K, H4K, n4k, seed=40), 40)
+        launches_by_path[phase], dense_by_path[phase] = main_path(
+            phase, lambda w, h: main10_params(w, h, meta), frames, card,
+            None, ("slicetype", "lookahead", "motion", "rd_adopt",
+                   "rd_promote", "tpu_residual", "loopfilter", "finalize"),
+            plain="first_minigop", size=(W4K, H4K),
+            check=check_main10_hdr10(phase, n4k))
+        del frames
+
     # ---- the kernels' table (launches: the main paths' runs together,
     # each path's own count beside it; the lossless path launches none).
     # Off the table: the entries no main path runs.
@@ -1546,7 +1757,8 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], **bounds(r, cal),
             "library_ms": r["library_ms"], "shape": r["shape"]}
-        for k in ("cold_l2_ms", "coherent_ms", "wide_ms"):
+        for k in ("cold_l2_ms", "coherent_ms", "wide_ms",
+                  "max_abs_err_10bit"):
             if k in r:
                 row[k] = r[k]
         for key in SHAPES_ON_PATH:
@@ -1555,13 +1767,15 @@ def main():
                 # bounded as above
                 sub = r[key]
                 row[key] = {
-                    **{k: sub[k] for k in ("shape", "max_abs_err", "ms",
+                    **{k: sub[k] for k in ("shape", "max_abs_err",
+                                           "max_abs_err_10bit", "ms",
                                            "plain_ms", "cold_l2_ms",
-                                           "library_ms") if k in sub},
+                                           "wide_ms", "library_ms")
+                       if k in sub},
                     **bounds(sub, cal)}
-                if key == "dense":
+                if key in DENSE_PATH:
                     # the launches of the dense search alone
-                    row[key]["launches"] = dense_by_path["encode_1080p_slow"]
+                    row[key]["launches"] = dense_by_path[DENSE_PATH[key]]
         (off_path if name in off_every_path else table).append(row)
     print(json.dumps({"kernels": table,
                       "entries_off_the_main_path": off_path,

@@ -76,7 +76,6 @@ def _params(**kw):
     ("qpfile", dict(qpfile="frames.txt")),
     ("frame_dup", dict(frame_dup=True)),
     ("intra_refresh", dict(intra_refresh=True)),
-    ("scaling_lists", dict(scaling_lists=True)),
     ("tskip", dict(tskip=True)), ("slices", dict(slices=2)),
     ("wpp", dict(wpp=True)),
 ])
@@ -143,13 +142,45 @@ def test_live_options_are_accepted(kw):
     assert enc.param.rd_level == kw.get("rd_level", enc.param.rd_level)
 
 
-def test_bit_depth_raises():
+@pytest.mark.parametrize("name,opts", [
+    ("scaling_lists", [("scaling-list", "default")]),
+    ("bit_depth 10", [("output-depth", "10")]),
+    ("main10 hdr10", [("output-depth", "10"), ("scaling-list", "default"),
+                      ("hdr10", "1"), ("hdr10-opt", "1"),
+                      ("max-cll", "1000,400")])])
+def test_main10_options_are_accepted(name, opts):
+    """Scaling lists, Main10 and the HDR10 options are ported (the first
+    two raised until the slice that ported them): the encoder opens and
+    signals each in its SPS."""
     from x265_tpu_torch.api.encoder import Encoder
     from x265_tpu_torch.api.params import param_parse
     p = _params()
-    param_parse(p, "output-depth", "10")
-    with pytest.raises(NotImplementedError, match="bit_depth"):
+    for k, v in opts:
+        param_parse(p, k, v)
+    enc = Encoder(p, device="cpu")
+    ten = p.bit_depth == 10
+    assert enc.sps.bit_depth == (10 if ten else 8)
+    assert enc.sps.ptl.profile_idc == (2 if ten else 1)
+    assert enc.sps.scaling_list_enabled == (name != "bit_depth 10")
+    assert enc.sps.scaling_list_data is None     # the default matrices
+    if name == "main10 hdr10":
+        assert (enc.sps.colour_primaries, enc.sps.transfer_characteristics,
+                enc.sps.matrix_coeffs) == (9, 16, 9)
+        assert enc.param.hdr10_opt and enc.sps.vui_present
+
+
+def test_bit_depth_raises():
+    """12 bits stays refused (check_params refuses it in both packages,
+    naming bit_depth); 10 is ported (test_main10_options_are_accepted)."""
+    from x265_tpu_torch.api.encoder import Encoder, _check_supported
+    from x265_tpu_torch.api.params import param_parse
+    p = _params()
+    param_parse(p, "output-depth", "12")
+    with pytest.raises(ValueError, match="bit_depth"):
         Encoder(p, device="cpu")
+    p.bit_depth = 12
+    with pytest.raises(NotImplementedError, match="bit_depth 12"):
+        _check_supported(p)
 
 
 def test_device_none_without_cuda_raises():

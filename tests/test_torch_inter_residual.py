@@ -144,9 +144,10 @@ def test_inter_class_body_exact():
 
 
 def test_unported_inputs_raise():
-    """Scaling lists still raise; RDOQ and the explicit RQT level are
-    ported (tests/test_torch_rqt.py); a picture with no inter CU gives
-    None."""
+    """No input is refused any more: scaling lists (the last one, now
+    held at 10 bits by tests/test_torch_main10.py) give the JAX package's
+    arrays; RDOQ and the explicit RQT level are ported
+    (tests/test_torch_rqt.py); a picture with no inter CU gives None."""
     w, h = 64, 64
     fr = make_clip(w, h, 2, seed=1)
     maps = _decisions(w, h, 5, 0)
@@ -157,9 +158,15 @@ def test_unported_inputs_raise():
                     for i, pl in enumerate(fr[0]))
     dec = decisions_from_numpy(**maps)
     pt.scaling_lists = "default"
-    with pytest.raises(NotImplementedError, match="scaling"):
-        tir.build_inter_pre(fr[1], dec, ([ref_pad], []), 30, pt, None,
-                            True, 1, device="cpu")
+    pj = slice_params("x265_tpu", w, h)
+    pj.scaling_lists = "default"
+    got = tir.build_inter_pre(fr[1], dec, ([ref_pad], []), 30, pt, None,
+                              True, 1, device="cpu")
+    want = jir.build_inter_pre(
+        fr[1], JDec(**{k: np.array(v) for k, v in maps.items()}),
+        ([ref_pad], []), 30, pj, None, True, 1)
+    for k in want:
+        assert np.array_equal(got[k], np.asarray(want[k])), k
     pt.scaling_lists = ""
     pt.tu_inter_depth = 2
     got = tir.build_inter_pre(fr[1], dec, ([ref_pad], []), 30, pt, None,

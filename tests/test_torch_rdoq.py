@@ -100,7 +100,15 @@ def test_tq_chain_with_rdoq_exact(n, form, psy, is_intra):
 
 
 def test_rdoq_scaling_lists_still_raise():
-    z = torch.zeros((1, 4, 4), dtype=torch.int32)
-    q = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="scaling"):
-        tres.rdoq_b(z, z, q, 4, 8, scaling=True)
+    """Scaling lists raised here until they were ported: rdoq_b with the
+    default matrices now gives the JAX package's levels (the whole grid is
+    in tests/test_torch_scaling.py)."""
+    rng = np.random.default_rng(2)
+    resi = _resi(rng, 8, 52)
+    qp = np.arange(52, dtype=np.int32)
+    cf = jres.fwd_transform_b(jnp.asarray(resi), 8, False, 8)
+    lvl = jres.quantize_b(cf, jnp.asarray(qp), 8, False, 8, True)
+    want = np.asarray(jres.rdoq_b(cf, lvl, jnp.asarray(qp), 8, 8, True))
+    got = tres.rdoq_b(T(np.asarray(cf)), T(np.asarray(lvl)), T(qp), 8, 8,
+                      scaling=True)
+    assert np.array_equal(got.numpy(), want)

@@ -55,13 +55,17 @@ def test_transform_stages_exact(n):
 
 
 def test_unported_branches_raise():
-    """Scaling lists are the one branch still refused (RDOQ is ported:
-    tests/test_torch_rdoq.py)."""
-    z = torch.zeros((1, 4, 4), dtype=torch.int32)
-    q = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tres.tq_chain(z, q, q, 4, False, False, 8, False, True, False,
-                      scaling=True)
-    with pytest.raises(NotImplementedError):
-        tres.tq_chain(z, q, q, 4, False, False, 8, False, False, False,
-                      scaling=True)
+    """No branch of the chain is refused any more: scaling lists (the last
+    one, tests/test_torch_scaling.py) run with and without RDOQ and give
+    the JAX package's levels, recon residuals and cbf."""
+    rng = np.random.default_rng(1)
+    z = rng.integers(-60, 61, (3, 8, 8)).astype(np.int32)
+    q = np.array([22, 30, 37], np.int32)
+    for rdoq in (True, False):
+        got = tres.tq_chain(T(z), T(q), T(np.zeros(3, np.int32)), 8, False,
+                            False, 8, False, rdoq, False, scaling=True)
+        want = jres.tq_chain(jnp.asarray(z), jnp.asarray(q),
+                             jnp.zeros(3, jnp.int32), 8, False, False, 8,
+                             False, rdoq, False, scaling=True)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy(), np.asarray(w))

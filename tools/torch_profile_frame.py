@@ -3,7 +3,7 @@
 all-intra path) of the PyTorch/CUDA port spends its time.
 
     python3 tools/torch_profile_frame.py
-        [--config ultrafast|filtered|live|medium|slow|lossless]
+        [--config ultrafast|filtered|live|medium|slow|lossless|main10]
         [--frames N] [--out trace.json]
 
 Needs a CUDA device. Encodes a seeded clip in one of the configurations
@@ -13,11 +13,15 @@ zerolatency under CRF 23 and a 6000 kbps VBV buffer, on the scene-cut
 clip with the cut at frame 4, so the last frame is a P frame of the new
 scene; x265's default medium at 4000 kbps ABR, bench.py's config 3, on
 its clip_crowd1080; the slow preset under the same rate control; at
-1280x720 bench.py's config 1, all-intra lossless on its pan), lets the
+1280x720 bench.py's config 1, all-intra lossless on its pan; at
+3840x2160 BASELINE config 4, the slow preset at Main10 with scaling
+lists and the HDR10/HDR10+ metadata on the crowd clip lifted to 10
+bits), lets the
 first frames warm everything up, then traces with torch.profiler the
-LAST P frame or, for medium and slow, the second mini-GOP: the
+LAST P frame or, for medium, slow and main10, the second mini-GOP: the
 flush_step call that codes one P anchor and the B pictures before it
-(frames default 6, and 11 for medium and slow: the I picture and ten
+(frames default 6, and 11 for medium, slow and main10: the I picture and
+ten
 queued pictures, two or more mini-GOPs); for lossless, one chunk of the
 pipelined path (Encoder.encode of 8 frames, after another encoder's
 encode of the same frames as warm-up), with no stage synchronising, so
@@ -32,6 +36,7 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -53,15 +58,16 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config",
                     choices=("ultrafast", "filtered", "live", "medium",
-                             "slow", "lossless"),
+                             "slow", "lossless", "main10"),
                     default="ultrafast")
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     card = chip_smoke.smi()
     W, H = chip_smoke.W, chip_smoke.H
-    n = args.frames or {"medium": 11, "slow": 11, "lossless": 8}.get(
-        args.config, 6)
+    n = args.frames or {"medium": 11, "slow": 11, "main10": 11,
+                        "lossless": 8}.get(args.config, 6)
+    tmp = tempfile.TemporaryDirectory()          # the HDR10+ metadata
     if args.config == "filtered":
         frames = chip_smoke.make_ramp_clip(W, H, n, seed=11,
                                            step=0.05)
@@ -75,6 +81,13 @@ def main():
         params = (chip_smoke.medium_params if args.config == "medium"
                   else chip_smoke.slow_params)
         enc = Encoder(params(W, H))
+    elif args.config == "main10":
+        W, H = chip_smoke.W4K, chip_smoke.H4K
+        frames = chip_smoke.lift10(
+            chip_smoke.clip_crowd1080(W, H, n, seed=40), 40)
+        meta = chip_smoke.testclip.write_dhdr10_json(
+            os.path.join(tmp.name, "hdr10plus.json"), n)
+        enc = Encoder(chip_smoke.main10_params(W, H, meta))
     elif args.config == "lossless":
         W, H = 1280, 720
         frames = list(chip_smoke.clip_pan(W, H, n, seed=10))
@@ -85,7 +98,7 @@ def main():
         enc = Encoder(chip_smoke.slice_params(W, H))
     if args.config == "lossless":
         step = lambda: enc.encode(frames)  # noqa: E731
-    elif args.config in ("medium", "slow"):
+    elif args.config in ("medium", "slow", "main10"):
         enc.headers()
         # the I picture codes at once, the rest queue (b-adapt's window is
         # rc-lookahead frames); the first mini-GOP warms up the B path
@@ -152,6 +165,8 @@ def main():
         })
     else:
         out["device_busy_ms"] = "not measured (the profiler saw no kernels)"
+    out["frame_size"] = [W, H]
+    tmp.cleanup()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

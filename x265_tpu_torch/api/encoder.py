@@ -149,15 +149,15 @@ def _check_supported(p) -> None:
     port does not encode yet — never silently encode something else."""
     bad = []
     for name in ("tskip", "wpp", "hist_scenecut", "frame_dup",
-                 "intra_refresh", "scaling_lists", "nr_intra", "nr_inter",
+                 "intra_refresh", "nr_intra", "nr_inter",
                  "qpfile", "analysis_save", "analysis_load", "zones",
                  "pass_num"):
         if getattr(p, name, 0):
             bad.append(name)
     if p.slices > 1:
         bad.append("slices > 1")
-    if p.bit_depth > 8:
-        bad.append("bit_depth > 8")
+    if p.bit_depth not in (8, 10):
+        bad.append(f"bit_depth {p.bit_depth}")
     if bad:
         raise NotImplementedError(
             "x265_tpu_torch does not support yet: " + ", ".join(bad))
@@ -217,7 +217,10 @@ class Encoder:
             vui_present=p.vui_timing_info,
             fps_num=p.fps_num, fps_den=p.fps_den,
             ptl=ptl,
-            scaling_list_enabled=False,
+            # --scaling-list default: enabled with no data present =>
+            # the spec's default matrices (sps_infer_scaling_list;
+            # scalinglist.cpp:417 setDefaultScalingList)
+            scaling_list_enabled=bool(p.scaling_lists),
             frame_field_info=False,
         )
         # HDR10 / colour description (x265 Encoder::configure vui wiring)
@@ -1290,6 +1293,7 @@ class Encoder:
                 rdoq_level=p.rdoq_level, weights=wp_native, col=col,
                 col_from_l0=int(sh.collocated_from_l0),
                 pre=pre_arg, collect=collect_arg,
+                scaling_lists=bool(p.scaling_lists),
                 psy_rdoq_fx=(int(round(p.psy_rdoq * 256))
                              if p.rdoq_level >= 2 else 0),
                 tu_inter_depth=p.tu_inter_depth)

@@ -12,6 +12,15 @@ Usage:
         --preset medium --bitrate 4000 [--bframes N] [--b-adapt 0|2] \
         [--b-pyramid | --no-b-pyramid] [--frame-threads N]
 
+    python -m x265_tpu_torch.cli --input in10.y4m --output out.hevc \
+        --preset slow --scaling-list default --hdr10 --hdr10-opt \
+        --master-display "G(...)B(...)R(...)WP(...)L(...)" \
+        --max-cll 1000,400 [--dhdr10-info meta.json --dhdr10-opt]
+    python -m x265_tpu_torch.cli --input in10.y4m --output out.hevc \
+        --output-depth 8 [--dither]
+
+A 10-bit Y4M (C420p10) encodes as Main10; --output-depth 8 reduces it by
+rounding, or with --dither by row-wise error diffusion (io/dither.py).
 The presets without a tune code B frames: --bframes sets the longest run
 of B pictures between two anchors, --b-adapt 2 places the anchors by the
 lowres slice-type search (0: fixed mini-GOPs), --b-pyramid codes the
@@ -51,6 +60,8 @@ def main(argv=None) -> int:
     ap.add_argument("--recon", default=None, help="write recon Y4M")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
+    ap.add_argument("--dither", action="store_true",
+                    help="error-diffusion dither when reducing input depth")
     ap.add_argument("--csv", default=None, help="per-frame CSV log")
     args, extra = ap.parse_known_args(argv)
 
@@ -137,6 +148,8 @@ def main(argv=None) -> int:
             idx, planes)
 
     shift = info.bit_depth - p.bit_depth       # >0: reduce input depth
+    if shift > 0 and args.dither:
+        from x265_tpu_torch.io.dither import dither_image
 
     total_bytes = 0
     nframes = 0
@@ -146,11 +159,15 @@ def main(argv=None) -> int:
         out.write(enc.headers())
         for (y, cb, cr) in reader.frames():
             if shift > 0:
-                half = 1 << (shift - 1)
-                maxv = (1 << p.bit_depth) - 1
-                y, cb, cr = (np.minimum(
-                    (v.astype(np.int32) + half) >> shift, maxv)
-                    for v in (y, cb, cr))
+                if args.dither:
+                    y, cb, cr = dither_image((y, cb, cr), info.bit_depth,
+                                             p.bit_depth)
+                else:
+                    half = 1 << (shift - 1)
+                    maxv = (1 << p.bit_depth) - 1
+                    y, cb, cr = (np.minimum(
+                        (v.astype(np.int32) + half) >> shift, maxv)
+                        for v in (y, cb, cr))
             t0 = time.time()
             au = enc.encode_frame(y, cb, cr)
             dt = (time.time() - t0) * 1000

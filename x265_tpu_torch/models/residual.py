@@ -15,9 +15,8 @@ matmul, and every accumulator below is an integer under 2^31 (bounds in
 the docstrings), far inside float64's 2^53 exact range, so the products
 are exact whatever order the library sums in. The integer RDOQ
 (_rdoq_x64) accumulates its costs in int64, which torch has on every
-device. Everything else is int32.
-
-Not ported yet: the scaling-list dequant path; scaling=True raises.
+device, and so does the scaling-list dequant, as the JAX package's call
+sites trace it under enable_x64. Everything else is int32.
 """
 from __future__ import annotations
 
@@ -29,11 +28,21 @@ import torch
 from x265_tpu_torch.ops.ref.transform import DCT, DST4
 from x265_tpu_torch.hevc.tables import (
     QUANT_SCALES, DEQUANT_SCALES, RDOQ_LAM32, RDOQ_LAM32_FULL, SCANS,
+    default_scaling_matrix,
 )
 
 
 def _tmat(n: int, dst: bool) -> np.ndarray:
     return (DST4 if (dst and n == 4) else DCT[n]).astype(np.int32)
+
+
+@lru_cache(maxsize=32)
+def _default_m(n: int, is_intra: bool, device: str) -> torch.Tensor:
+    """Default scaling matrix (spec 7.4.5 / Tables 7-5,7-6) as an [n,n]
+    int32 tensor. Only the DEFAULT lists reach the device path
+    (--scaling-list default; param coerces custom files)."""
+    return torch.from_numpy(
+        default_scaling_matrix(n, is_intra).astype(np.int32)).to(device)
 
 
 @lru_cache(maxsize=64)
@@ -99,9 +108,9 @@ def quantize_b(coeff: torch.Tensor, qp: torch.Tensor, n: int,
                is_intra: bool, bd: int,
                scaling: bool = False) -> torch.Tensor:
     """Batched deadzone quant; qp [N] per-TU. Bounds: |c|*scale < 2^30,
-    offset <= 171<<20 => sum < 2^31 — int32 exact."""
-    if scaling:
-        raise NotImplementedError("scaling lists are not ported yet")
+    offset <= 171<<20 => sum < 2^31 — int32 exact. With scaling lists the
+    per-position quant coefficient is quantScale[rem]*16/m (x265
+    ScalingList quantCoef derivation; default m >= 16 keeps the bound)."""
     log2 = n.bit_length() - 1
     qp = qp.to(torch.int32)
     per = torch.div(qp, 6, rounding_mode="floor")
@@ -109,6 +118,9 @@ def quantize_b(coeff: torch.Tensor, qp: torch.Tensor, n: int,
     tr_shift = 15 - bd - log2
     qbits = (14 + per + tr_shift)[:, None, None]
     scale = _table_dev("quant", str(coeff.device))[rem.long()][:, None, None]
+    if scaling:
+        m = _default_m(n, is_intra, str(coeff.device))
+        scale = torch.div(scale * 16, m[None], rounding_mode="floor")
     offset = torch.full_like(qbits, 171 if is_intra else 85) << (qbits - 9)
     c = coeff.to(torch.int32)
     a = c.abs()
@@ -117,21 +129,30 @@ def quantize_b(coeff: torch.Tensor, qp: torch.Tensor, n: int,
 
 
 def _deq_core(lvl, per, rem, bs, rounded: bool, m=None):
-    """Shared dequant core without int64:
+    """Shared dequant core without int64 on the flat path:
     (t*2^per + rnd) >> bs == t << (per-bs)              (per >= bs)
                           == (t + rnd') >> (bs-per)     (per < bs)
     with t = lvl*scale*16 (|t| <= 32767*1152 < 2^26). rnd' = 2^(bs-per-1)
-    when `rounded` (normative dequant), else 0."""
-    if m is not None:
-        raise NotImplementedError("scaling lists are not ported yet")
-    scale = _table_dev("dequant", str(lvl.device))[rem.long()] * 16
-    while scale.dim() < lvl.dim():
-        scale = scale[..., None]
-        per = per[..., None]
-    t = lvl.to(torch.int32) * scale
+    when `rounded` (normative dequant), else 0 (RDOQ's deq).
+
+    m: optional [n,n] scaling matrix (int32 tensor) in place of the flat
+    16, with per [N] and lvl [N,n,n]; that path is int64, as every call
+    site of the JAX package traces it (with the default matrices its
+    products stay below 2^31 all the same: tests/test_torch_scaling.py)."""
+    table = _table_dev("dequant", str(lvl.device))[rem.long()]
+    if m is None:
+        scale = table * 16
+        while scale.dim() < lvl.dim():
+            scale = scale[..., None]
+            per = per[..., None]
+        t = lvl.to(torch.int32) * scale
+    else:
+        scale = table.to(torch.int64)[..., None, None] * m.to(torch.int64)
+        per = per[..., None, None]
+        t = lvl.to(torch.int64) * scale
     sh = per - bs
     up = t << sh.clamp(min=0)
-    dn_s = (-sh).clamp(min=0)
+    dn_s = (-sh).clamp(min=0).to(t.dtype)
     if rounded:
         one = torch.ones_like(dn_s)
         rnd = torch.where(dn_s > 0, one << (dn_s - 1).clamp(min=0),
@@ -145,13 +166,13 @@ def _deq_core(lvl, per, rem, bs, rounded: bool, m=None):
 def dequantize_b(lvl: torch.Tensor, qp: torch.Tensor, n: int,
                  bd: int, scaling: bool = False,
                  is_intra: bool = False) -> torch.Tensor:
-    """Batched normative dequant + clamp16 (int32-only)."""
-    if scaling:
-        raise NotImplementedError("scaling lists are not ported yet")
+    """Batched normative dequant + clamp16 (int32-only on the flat path;
+    int64 on the scaling-list path)."""
     log2 = n.bit_length() - 1
     qp = qp.to(torch.int32)
     per = torch.div(qp, 6, rounding_mode="floor")
-    d = _deq_core(lvl, per, qp - per * 6, bd + log2 - 5, rounded=True)
+    m = _default_m(n, is_intra, str(lvl.device)) if scaling else None
+    d = _deq_core(lvl, per, qp - per * 6, bd + log2 - 5, rounded=True, m=m)
     return d.clamp(-32768, 32767).to(torch.int32)
 
 
@@ -175,8 +196,6 @@ def _rdoq_x64(coeff, lvl, qp, n, bd, scaling: bool = False,
     psy_fx: Q8 psy-rdoq strength — AC coefficients earn an energy
     credit (psy_fx * 32 * |dequant(l)|) >> 8 (quant.cpp:610 psy path,
     luma only; matches ops/ref/transform.rdoq bit-exactly)."""
-    if scaling:
-        raise NotImplementedError("scaling lists are not ported yet")
     log2 = n.bit_length() - 1
     qp = qp.to(torch.int32)
     per = torch.div(qp, 6, rounding_mode="floor")
@@ -191,10 +210,11 @@ def _rdoq_x64(coeff, lvl, qp, n, bd, scaling: bool = False,
     c = coeff.to(torch.int64)
     sgn = torch.sign(lvl).to(torch.int64)
     l0 = lvl.abs().to(torch.int64)
+    m = _default_m(n, is_intra, dev) if scaling else None
 
     def deq(l):
         return _deq_core(l.to(torch.int32), per, rem, bs,
-                         rounded=False).to(torch.int64)
+                         rounded=False, m=m).to(torch.int64)
 
     if consts is not None:
         K = consts.to(device=coeff.device, dtype=torch.int64)

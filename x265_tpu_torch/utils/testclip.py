@@ -81,6 +81,103 @@ def make_cut_clip(w, h, n, seed, cut):
     return frames
 
 
+def lift10(frames, seed):
+    """8-bit frames lifted to 10 bits (Main10): every sample times four
+    plus two seeded low bits, uint16, so that the low bits carry noise
+    that no 8-bit path would see. Takes any iterable of (y, cb, cr)."""
+    rng = np.random.default_rng((seed, 10))
+    return [tuple((np.asarray(pl).astype(np.uint16) << 2)
+                  | rng.integers(0, 4, np.shape(pl), dtype=np.uint16)
+                  for pl in f) for f in frames]
+
+
+# HDR10+ (ST 2094-40) dynamic metadata: one entry a picture, as
+# --dhdr10-info reads it (hevc/dhdr10.load_dhdr10_json)
+DHDR10_META = {
+    "BezierCurveData": {
+        "Anchors": [102, 205, 307, 410, 512, 614, 717, 819, 922],
+        "KneePointX": 10, "KneePointY": 25},
+    "LuminanceParameters": {
+        "AverageRGB": 400,
+        "LuminanceDistributions": {
+            "DistributionIndex": [1, 5, 10, 25, 50, 75, 90, 95, 99],
+            "DistributionValues": [17, 100000, 201, 301, 405, 510,
+                                   615, 720, 844]},
+        "MaxScl": [17830, 16895, 14252]},
+    "NumberOfWindows": 1,
+    "TargetedSystemDisplayMaximumLuminance": 400,
+}
+MASTER_DISPLAY = ("G(13250,34500)B(7500,3000)R(34000,16000)"
+                  "WP(15635,16450)L(10000000,1)")
+
+
+def dhdr10_scenes(n, hold=4):
+    """n per-picture entries: the targeted luminance steps every `hold`
+    pictures, so that --dhdr10-opt drops the repeats between steps."""
+    import json
+    out = []
+    for i in range(n):
+        m = json.loads(json.dumps(DHDR10_META))
+        m["TargetedSystemDisplayMaximumLuminance"] = 400 + 100 * (i // hold)
+        out.append(m)
+    return out
+
+
+def write_dhdr10_json(path, n, hold=4):
+    """Write dhdr10_scenes(n, hold) as a --dhdr10-info file; returns path."""
+    import json
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump({"SceneInfo": dhdr10_scenes(n, hold)}, f)
+    return str(path)
+
+
+def dhdr10_expected(types, pocs, n, hold=4, opt=True):
+    """The targeted luminance of the HDR10+ SEI each picture must carry,
+    in encode order (None: no SEI), for dhdr10_scenes(n, hold); types and
+    POCs in encode order, display index = POC (one IDR, at the start).
+    With --dhdr10-opt an SEI is written on I pictures and where the
+    payload differs from the last one written."""
+    out, last = [], None
+    for t, poc in zip(types, pocs):
+        lum = 400 + 100 * (poc // hold) if poc < n else None
+        if lum is None or (opt and t != "I" and lum == last):
+            out.append(None)
+            continue
+        if opt:
+            last = lum
+        out.append(lum)
+    return out
+
+
+def stream_hdr10(stream):
+    """What a stream signals for HDR10: (SPS, {SEI payload type: payload}
+    of the prefix SEIs before the first picture, [targeted luminance of
+    each picture's HDR10+ SEI, or None, in stream order])."""
+    from x265_tpu_torch.hevc.bitstream import (split_annexb,
+                                               strip_emulation_prevention)
+    from x265_tpu_torch.hevc.dhdr10 import (SEI_USER_DATA_REGISTERED,
+                                            parse_st2094_40)
+    from x265_tpu_torch.hevc.headers import parse_sps
+    from x265_tpu_torch.hevc.sei import parse_sei
+    sps, first, lums, cur = None, {}, [], None
+    for nal in split_annexb(stream):
+        t = (nal[0] >> 1) & 0x3F
+        body = strip_emulation_prevention(nal[2:])
+        if t == 33:
+            sps = parse_sps(body)
+        elif t == 39:
+            for pt, pl in parse_sei(body):
+                if not lums:
+                    first[pt] = pl
+                if pt == SEI_USER_DATA_REGISTERED:
+                    cur = parse_st2094_40(pl)[
+                        "TargetedSystemDisplayMaximumLuminance"]
+        elif t < 32:
+            lums.append(cur)
+            cur = None
+    return sps, first, lums
+
+
 # ---- bench.py's 1080p and 720p clips -------------------------------------
 # A copy of tools/make_clips.py's clip_crowd1080, clip_pan and their
 # helpers: that file
@@ -232,15 +329,42 @@ GOLDEN_CASES = {
     # inter RQT, the dense star search over 4 references, subme 3
     "fast_lossless": ("fast", None, {"lossless": "1"}, "make_clip", 6),
     "slow_crf": ("slow", None, {"crf": "28"}, "make_clip", 7),
+    # Main10 (output-depth 10; clips lifted by lift10): weightp, deblock
+    # and SAO on the low-latency path; B frames, the HME and the window
+    # search with the default scaling lists; the pipelined all-intra
+    # lossless path; BASELINE config 4 (slow, scaling lists, HDR10 and
+    # HDR10+ metadata, hdr10-opt's luma-banded AQ)
+    "main10_fast_zerolatency": (
+        "fast", "zerolatency",
+        {"output-depth": "10", "qp": "30", "scenecut": "0"},
+        "make_ramp_clip", 8),
+    "main10_medium_scaling": (
+        "medium", None,
+        {"output-depth": "10", "scaling-list": "default", "crf": "28"},
+        "make_clip", 9),
+    "main10_lossless_allintra": (
+        "ultrafast", None,
+        {"output-depth": "10", "lossless": "1", "keyint": "1"},
+        "make_clip", 10),
+    "main10_slow_hdr10": (
+        "slow", None,
+        {"output-depth": "10", "scaling-list": "default", "hdr10": "1",
+         "hdr10-opt": "1", "master-display": MASTER_DISPLAY,
+         "max-cll": "1000,400", "dhdr10-info": "<fixture>",
+         "dhdr10-opt": "1", "crf": "28"},
+        "make_clip", 11),
 }
 GOLDEN_SIZE = (192, 128, 5)          # width, height, frames
 GOLDEN_CUT = 3                       # the scene cut of make_cut_clip cases
 # cases of their own length (two mini-GOPs of B frames) and scene cut
 GOLDEN_FRAMES = {"fast_crf": (11, None), "medium_crf_cut": (11, 7),
-                 "medium_abr": (11, None), "slow_crf": (11, None)}
+                 "medium_abr": (11, None), "slow_crf": (11, None),
+                 "main10_medium_scaling": (11, None),
+                 "main10_slow_hdr10": (11, None)}
 # cases whose stream is Encoder.encode's (the all-intra pipelined path),
 # not headers + encode_frame per picture + flush
-GOLDEN_PIPELINED = ("ultrafast_lossless_allintra", "medium_allintra_crf")
+GOLDEN_PIPELINED = ("ultrafast_lossless_allintra", "medium_allintra_crf",
+                    "main10_lossless_allintra")
 
 
 def golden_clip(name):
@@ -248,15 +372,31 @@ def golden_clip(name):
     n, cut = GOLDEN_FRAMES.get(name, (n, GOLDEN_CUT))
     maker = {"make_clip": make_clip, "make_ramp_clip": make_ramp_clip,
              "make_cut_clip": lambda *a: make_cut_clip(*a, cut=cut)}
-    return maker[GOLDEN_CASES[name][3]](w, h, n, GOLDEN_CASES[name][4])
+    seed = GOLDEN_CASES[name][4]
+    frames = maker[GOLDEN_CASES[name][3]](w, h, n, seed)
+    if GOLDEN_CASES[name][2].get("output-depth") == "10":
+        frames = lift10(frames, seed)
+    return frames
 
 
-def golden_params(name, params_module):
+def golden_params(name, params_module, tmpdir=None):
     """The case's Param, built through the given package's api.params
-    module (either package's: the option names are the same)."""
+    module (either package's: the option names are the same). A
+    "<fixture>" value of dhdr10-info becomes the HDR10+ file of the
+    case's length, written into tmpdir, which such a case needs (the
+    stream does not depend on the path; the encoder reads the file when
+    it opens)."""
+    import os
     preset, tune, opts = GOLDEN_CASES[name][:3]
     p = params_module.param_default_preset(preset, tune)
     for k, v in opts.items():
+        if v == "<fixture>":
+            if tmpdir is None:
+                raise ValueError(f"golden case {name} needs a directory "
+                                 "for its fixture file")
+            n = GOLDEN_FRAMES.get(name, (GOLDEN_SIZE[2],))[0]
+            v = write_dhdr10_json(os.path.join(tmpdir, "hdr10plus.json"),
+                                  n)
         params_module.param_parse(p, k, v)
     p.width, p.height = GOLDEN_SIZE[:2]
     return p
