@@ -20,8 +20,11 @@ explicit inter RQT, the dense star search over four references); at
 1280x720 bench.py's config 1 (all-intra lossless, the pipelined path),
 decoded back to the source itself; at 3840x2160 BASELINE config 4
 (Main10 under the slow preset with the default scaling lists and the
-HDR10 and HDR10+ metadata) — and checks that each went through every
-kernel of its path. Every kernel is held on 8-bit and on 10-bit samples. One JSON line per phase; any failure ends the
+HDR10 and HDR10+ metadata); then the encodes steered from outside at
+1080p: bench.py config 3 in two passes, config 3 saved and loaded again
+through --analysis-save/--analysis-load with the --scale-factor 2 chain
+beside it, and an ABR ladder of three renditions scaled on the card —
+and checks that each went through every kernel of its path. Every kernel is held on 8-bit and on 10-bit samples. One JSON line per phase; any failure ends the
 run with a non-zero exit code and no result line.
 """
 import contextlib
@@ -43,6 +46,7 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from x265_tpu_torch.api.encoder import Encoder
+from x265_tpu_torch.api import ladder
 from x265_tpu_torch.api import params as api_params
 from x265_tpu_torch.api.params import param_default_preset, param_parse
 from x265_tpu_torch.decoder.decoder import HEVCDecoder
@@ -52,6 +56,7 @@ from x265_tpu_torch.ops import cuda_build, cuda_kernels, cuda_mc
 from x265_tpu_torch.hevc.bitstream import NAL_TRAIL_R, split_annexb
 from x265_tpu_torch.hevc.sei import (SEI_CONTENT_LIGHT_LEVEL,
                                      SEI_MASTERING_DISPLAY)
+from x265_tpu_torch.io.scaler import scale_frame
 from x265_tpu_torch.utils import devcache, profiling, testclip
 from x265_tpu_torch.utils.convert import interp_filters
 from x265_tpu_torch.utils.testclip import (clip_crowd1080, clip_pan,
@@ -217,6 +222,27 @@ def medium_params(w, h):
     p.width, p.height = w, h
     p.fps_num, p.fps_den = 25, 1
     return p
+
+
+def steered_params(opts, kbps=4000):
+    """bench.py config 3 (medium_params) at kbps with more options
+    through param_parse: a function of (w, h), as main_path takes it."""
+    def build(w, h):
+        p = medium_params(w, h)
+        p.bitrate = kbps
+        for k, v in opts.items():
+            param_parse(p, k, v)
+        return p
+    return build
+
+
+# the --scale-factor 2 chain runs where the JAX package's chain is sound
+# (ROADMAP Queue 3): 32x32 CTUs (a saved 32x32 intra CU would become a
+# 64x64 intra CU), no AQ and no cuTree (the saved per-CTB QP map is of
+# the half-size grid), fixed mini-GOPs (each picture loads the decisions
+# of the picture of the same type)
+SF2_OPTS = {"ctu": "32", "aq-mode": "0", "cutree": "0", "b-adapt": "0",
+            "scenecut": "0"}
 
 
 def slow_params(w, h):
@@ -1202,7 +1228,16 @@ OFF_PATH = {"encode_1080p": LOW_LATENCY_OFF_PATH,
             "encode_1080p_live": LOW_LATENCY_OFF_PATH,
             "encode_1080p_medium": ("sad_sweep",),
             "encode_1080p_slow": ("sad_sweep", "sad_local_argmin"),
-            "encode_2160p_main10_hdr10": ("sad_sweep", "sad_local_argmin")}
+            "encode_2160p_main10_hdr10": ("sad_sweep", "sad_local_argmin"),
+            # the steered paths run config 3's medium preset (the loaded
+            # encodes skip the motion search: their save encodes run it)
+            "encode_1080p_twopass": ("sad_sweep",),
+            "encode_1080p_analysis_reuse": ("sad_sweep",),
+            "ladder_1080p": ("sad_sweep",)}
+# the kernels of the motion search, which an encode that loads its
+# decisions must not launch
+MOTION_KERNELS = ("tile_gather_planes", "tile_gather_planes_satd",
+                  "sad_local_argmin")
 
 
 # the extra shapes a kernel is held and timed at, beside its main row
@@ -1283,19 +1318,27 @@ def check_filtered(enc, what):
 
 
 def golden_phase():
-    """Encode the golden cases on the card and hold their digests against
-    the JAX package's (golden_streams.json). Cases without AQ are integer
+    """Encode the golden cases (with the golden ladder's renditions) on
+    the card and hold their digests against the JAX package's
+    (golden_streams.json). Cases without AQ are integer
     paths behind an fp32 analysis whose sums are exact in any order: a
     mismatch is a fault. The AQ case goes through host float64 (libm's
     pow): a mismatch there is reported with the number of CTUs whose QP
     differs, and is a fault only when no QP differs."""
     gold = testclip.golden_digests()
+    encoded = []
     for name in testclip.GOLDEN_CASES:
         devcache.clear()
         frames = testclip.golden_clip(name)
         with tempfile.TemporaryDirectory() as tmp:     # fixture files
-            enc = Encoder(testclip.golden_params(name, api_params, tmp))
-            stream, qp_maps = testclip.golden_stream(enc, name, frames)
+            enc = Encoder(testclip.golden_params(name, api_params, tmp,
+                                                 encoder=Encoder))
+            encoded.append((name,) + testclip.golden_stream(enc, name,
+                                                            frames))
+    devcache.clear()
+    streams, _ = testclip.golden_ladder(ladder)
+    encoded += [(name, stream, None) for name, stream in streams.items()]
+    for name, stream, qp_maps in encoded:
         digest = hashlib.sha256(stream).hexdigest()
         same = (digest == gold[name]["sha256"]
                 and len(stream) == gold[name]["bytes"])
@@ -1457,7 +1500,8 @@ def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
         if not report.get(st, {}).get("calls"):
             fail(f"{phase}: stage {st} never ran")
     if phase in ("encode_1080p_live", "encode_1080p_medium",
-                 "encode_1080p_slow", "encode_2160p_main10_hdr10"):
+                 "encode_1080p_slow", "encode_2160p_main10_hdr10",
+                 "encode_1080p_twopass"):
         extra.update({"frame_qps": [s["qp"] for s in enc.frame_stats],
                       "frame_pocs": [s["poc"] for s in enc.frame_stats],
                       "vbv_reencodes": enc.vbv_reencodes,
@@ -1620,6 +1664,319 @@ def lossless_path(card):
          decoded_equals_source=True, decode_seconds=t_dec)
     return launches
 
+def timed_encode(params, frames):
+    """One encode through Encoder.encode with the launch counts and the
+    stage timers set to 0 just before and read just after, every stage
+    ending in a synchronise. Returns (encoder, stream, seconds,
+    launches, stage seconds)."""
+    devcache.clear()
+    enc = Encoder(params)
+    profiling.reset()
+    profiling.set_sync(True)
+    cuda_mc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    stream = enc.encode(frames)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    profiling.set_sync(False)
+    stages = {k: round(v["seconds"], 4)
+              for k, v in profiling.report().items()}
+    return enc, stream, seconds, dict(cuda_mc.launches), stages
+
+
+def encode_numbers(enc, stream, seconds, kbps_target=None):
+    """fps, bytes, kbps (against the target), types and QPs of an encode."""
+    n = len(enc.frame_stats)
+    fps_src = enc.param.fps_num / max(1, enc.param.fps_den)
+    out = {"frames": n, "seconds": seconds, "fps": n / seconds,
+           "bytes": len(stream), "kbps": len(stream) * 8 * fps_src / n / 1e3,
+           "types": "".join(s["type"] for s in enc.frame_stats),
+           "frame_qps": [s["qp"] for s in enc.frame_stats]}
+    if kbps_target:
+        out["kbps_target"] = kbps_target
+        out["kbps_error"] = out["kbps"] / kbps_target - 1.0
+    return out
+
+
+def twopass_path(card, frames):
+    """bench.py config 3 in two passes: --pass 1 writes the stats file (in
+    a temporary directory) when the encode closes, then main_path drives
+    --pass 2, which plans from it; the plain versions must give pass 2's
+    bytes up to its first mini-GOP. Pass 2 must plan from what pass 1
+    wrote: a record a picture, typed as pass 1's rate control recorded
+    them, each taken by one rate-control start of pass 2."""
+    phase = "encode_1080p_twopass"
+    with tempfile.TemporaryDirectory() as tmp:
+        stats = os.path.join(tmp, "config3.log")
+        enc1, s1, t1, l1, st1 = timed_encode(
+            steered_params({"pass": "1", "stats": stats})(W, H), frames)
+        pass1 = {**encode_numbers(enc1, s1, t1, 4000), "launches": l1,
+                 "stage_seconds": st1}
+        missing = [k for k, v in l1.items()
+                   if v == 0 and k not in OFF_PATH[phase]]
+        if missing:
+            fail(f"{phase}: pass 1 never launched {missing}")
+
+        def check(enc, stream):
+            with open(stats) as f:
+                recs = [json.loads(line) for line in f if line.strip()]
+            written = [r["type"] for r in enc1.rc.pass1_records]
+            if ([r["type"] for r in recs] != written
+                    or len(recs) != len(enc.frame_stats)
+                    or enc.rc.pass2_qp is None
+                    or len(enc.rc.pass2_qs) != len(recs)
+                    or enc.rc.pass2_idx != len(recs)):
+                fail(f"{phase}: pass 2 did not plan from pass 1's stats "
+                     f"({len(recs)} records typed "
+                     f"{''.join(r['type'] for r in recs)}, pass 1 wrote "
+                     f"{''.join(written)}; {len(enc.frame_stats)} pictures, "
+                     f"{enc.rc.pass2_idx} records consumed)")
+            two = encode_numbers(enc, stream, 1.0, 4000)
+            return {"pass1": pass1, "kbps": two["kbps"],
+                    "stats_types": "".join(written),
+                    "kbps_error": two["kbps_error"],
+                    "pass1_kbps_error": pass1["kbps_error"],
+                    "stats_records": len(recs),
+                    "stats_records_with_cutree": sum("cutree" in r
+                                                     for r in recs)}
+        return main_path(phase, steered_params({"pass": "2",
+                                                "stats": stats}),
+                         frames, card, None,
+                         ("slicetype", "lookahead", "motion", "rd_adopt",
+                          "rd_promote", "loopfilter", "finalize"),
+                         plain="first_minigop", size=(W, H), check=check)
+
+
+def analysis_reuse_path(card, frames):
+    """(a) bench.py config 3 with --analysis-save, then with
+    --analysis-load of that file: the load must give the save's stream
+    byte for byte and run no motion search and no RD pass. (b) x265's
+    chain: a save at half size from the source area-scaled on the card, a
+    load at full size with --scale-factor 2 (SF2_OPTS), checked by its
+    SPS geometry, its types and the plain versions' first mini-GOP. Half
+    of 1080 lines is 540, which the encoder does not code (it writes no
+    conformance window: both sizes must be multiples of 8), so the chain
+    runs on the clip's top 1072 lines: 960x536 -> 1920x1072. The path's
+    launches are the four encodes', each counted from 0."""
+    phase = "encode_1080p_analysis_reuse"
+    total = dict.fromkeys(cuda_mc.launches, 0)
+    line = {}
+    hc = H - H % 16                     # 1072: half of it is 536
+    crop = [(y[:hc], cb[:hc // 2], cr[:hc // 2]) for (y, cb, cr) in frames]
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "config3.dat"), os.path.join(tmp, "half.dat")
+        runs = {}
+        for key, params, clip in (
+                ("save", steered_params({"analysis-save": a})(W, H),
+                 frames),
+                ("load", steered_params({"analysis-load": a})(W, H),
+                 frames),
+                ("save_half", steered_params(
+                    {**SF2_OPTS, "analysis-save": b}, 1200)(W // 2, hc // 2),
+                 [scale_frame(f, hc // 2, W // 2) for f in crop]),
+                ("load_scale_factor_2", steered_params(
+                    {**SF2_OPTS, "analysis-load": b,
+                     "scale-factor": "2"})(W, hc), crop)):
+            enc, stream, t, launches, stages = timed_encode(params, clip)
+            runs[key] = (enc, stream)
+            for k, v in launches.items():
+                total[k] += v
+            line[key] = {**encode_numbers(enc, stream, t),
+                         "stage_seconds": stages, "launches": launches}
+            if key.startswith("load"):
+                ran = [st for st in ("motion", "rd_adopt", "rd_promote")
+                       if st in stages]
+                moved = [k for k in MOTION_KERNELS if launches[k]]
+                if ran or moved or not launches["mc_gather_interp"]:
+                    fail(f"{phase}: the {key} encode ran stages {ran} and "
+                         f"kernels {moved}, mc_gather_interp "
+                         f"{launches['mc_gather_interp']} times")
+        if runs["load"][1] != runs["save"][1]:
+            fail(f"{phase}: the load stream ({len(runs['load'][1])} bytes)"
+                 f" != the save stream ({len(runs['save'][1])} bytes)")
+        enc, stream = runs["load_scale_factor_2"]
+        sps = enc.sps
+        if (sps.width, sps.height) != (W, hc) or enc.param.scale_factor != 2:
+            fail(f"{phase}: the chain's SPS is {sps.width}x{sps.height}")
+        t_half = line["save_half"]["types"]
+        if line["load_scale_factor_2"]["types"] != t_half:
+            fail(f"{phase}: the chain's types "
+                 f"{line['load_scale_factor_2']['types']} != the saved "
+                 f"encode's {t_half}")
+        check_b_structure(phase, enc, stream)
+        devcache.clear()
+        t0 = time.time()
+        with plain_versions():
+            cuda_mc.reset_launches()
+            plain, n_plain = plain_first_minigop(steered_params(
+                {**SF2_OPTS, "analysis-load": b, "scale-factor": "2"}),
+                crop, (W, hc))
+            if any(cuda_mc.launches.values()):
+                fail(f"{phase}: the plain-version run launched a kernel")
+        if not stream.startswith(plain):
+            fail(f"{phase}: the chain's kernel stream != its plain-version "
+                 f"stream over the first {n_plain} pictures")
+    missing = [k for k, v in total.items()
+               if v == 0 and k not in OFF_PATH[phase]]
+    if missing:
+        fail(f"{phase}: kernels never launched: {missing}")
+    emit(phase, card=card, **line, load_equals_save_stream=True,
+         chain_plain_pictures=n_plain,
+         chain_plain_seconds=time.time() - t0,
+         load_wall_share_of_save=line["load"]["seconds"]
+         / line["save"]["seconds"], launches=total)
+    return total
+
+
+# bench.py config 3's source into three medium renditions: 1080p at 4000
+# kbps, 720p at 2400 (the polyphase ratio 2/3) and 360p at 800 (the area
+# ratio 3; the area ratio 2 gives 540 lines, which the encoder does not
+# code: no conformance window, so sizes are multiples of 8)
+LADDER_1080P = [(1920, 1080, 4000), (1280, 720, 2400), (640, 360, 800)]
+
+
+def ladder_path(card, frames):
+    """api/ladder.AbrLadder on the card: every source frame scaled and
+    encoded into each rendition, one after another. The scaler is held
+    against its CPU result on the first frame's planes at both ratios
+    (the area ratio exact; the polyphase bank's float32 products with
+    their mismatch count), and every rendition's stream against the
+    plain versions' up to its first mini-GOP."""
+    phase = "ladder_1080p"
+    scaler = {}
+    for (w, h, _k) in LADDER_1080P[1:]:
+        card_planes = scale_frame(frames[0], h, w)
+        cpu_planes = scale_frame(frames[0], h, w, device="cpu")
+        diff = [np.abs(a.astype(np.int32) - b.astype(np.int32))
+                for a, b in zip(card_planes, cpu_planes)]
+        kind = "area" if W % w == 0 else "polyphase"
+        scaler[f"{w}x{h}"] = {
+            "method": kind, "samples": int(sum(d.size for d in diff)),
+            "mismatches": int(sum((d > 0).sum() for d in diff)),
+            "max_abs_err": int(max(d.max() for d in diff))}
+        if kind == "area" and scaler[f"{w}x{h}"]["mismatches"]:
+            fail(f"{phase}: the area scaler on the card != the CPU's")
+    devcache.clear()
+    rends = [ladder.Rendition(w, h, k) for (w, h, k) in LADDER_1080P]
+    lad = ladder.AbrLadder(W, H, rends)
+    secs = dict.fromkeys(lad.encoders, 0.0)
+    for i, enc in lad.encoders.items():
+        # each rendition's time: its scale and its encoder calls
+        for name in ("encode_frame", "flush"):
+            def timed(*a, _f=getattr(enc, name), _i=i, **kw):
+                t = time.time()
+                out = _f(*a, **kw)
+                torch.cuda.synchronize()
+                secs[_i] += time.time() - t
+                return out
+            setattr(enc, name, timed)
+    scale = ladder.scale_frame
+
+    def timed_scale(frame, oh, ow, device=None):
+        t = time.time()
+        out = scale(frame, oh, ow, device=device)
+        secs[[r.height for r in rends].index(oh)] += time.time() - t
+        return out
+    ladder.scale_frame = timed_scale
+    cuda_mc.reset_launches()
+    torch.cuda.synchronize()
+    try:
+        t0 = time.time()
+        for f in frames:
+            lad.push(f)
+        out = lad.finish()
+        torch.cuda.synchronize()
+        t_all = time.time() - t0
+    finally:
+        ladder.scale_frame = scale
+    launches = dict(cuda_mc.launches)
+    missing = [k for k, v in launches.items()
+               if v == 0 and k not in OFF_PATH[phase]]
+    if missing:
+        fail(f"{phase}: kernels never launched: {missing}")
+    stats = lad.stats()
+    per = []
+    for i, (w, h, kbps) in enumerate(LADDER_1080P):
+        enc = lad.encoders[i]
+        if (enc.sps.width, enc.sps.height) != (w, h):
+            fail(f"{phase}: rendition {i} is {enc.sps.width}x"
+                 f"{enc.sps.height}")
+        types, _vcl = check_b_structure(f"{phase} {w}x{h}", enc, out[i])
+        devcache.clear()
+        clip = [scale_frame(f, h, w) for f in frames]
+        with plain_versions():
+            cuda_mc.reset_launches()
+            plain, n_plain = plain_first_minigop(
+                steered_params({}, kbps), clip, (w, h))
+            if any(cuda_mc.launches.values()):
+                fail(f"{phase}: the plain-version run launched a kernel")
+        if not out[i].startswith(plain):
+            fail(f"{phase}: rendition {w}x{h} != its plain-version stream "
+                 f"over the first {n_plain} pictures")
+        per.append({"size": f"{w}x{h}", **encode_numbers(
+            enc, out[i], secs[i], kbps), "share_of_seconds": secs[i] / t_all,
+            "plain_pictures": n_plain,
+            "stats_bitrate_kbps": stats[i]["bitrate_kbps"]})
+    emit(phase, card=card, source_frames=len(frames), seconds=t_all,
+         source_fps=len(frames) / t_all, renditions=per, scaler=scaler,
+         launches=launches)
+    return launches
+
+
+def small_steered_phases():
+    """The steered encodes at 416x240, decoded back by the port's decoder
+    to the encoder's recon: two passes of medium ABR, a qpfile (a forced
+    CRA, an IDR, QPs) with q= and b= zones, and a two-rendition ladder at
+    the area ratio 2 (416x240 and 208x120)."""
+    frames = list(clip_crowd1080(416, 240, 11, seed=40))
+    with tempfile.TemporaryDirectory() as tmp:
+        stats = os.path.join(tmp, "small.log")
+        for n in (1, 2):
+            enc, stream, t = encode_and_decode(
+                f"encode_small twopass {n}", steered_params(
+                    {"pass": str(n), "stats": stats}, 400)(416, 240),
+                frames)
+            emit("encode_small", config=f"twopass pass {n}",
+                 decoded_equals_recon=True,
+                 **encode_numbers(enc, stream, t, 400))
+        qpfile = os.path.join(tmp, "qp.txt")
+        with open(qpfile, "w") as f:
+            f.write(testclip.GOLDEN_QPFILE)
+        enc, stream, t = encode_and_decode(
+            "encode_small qpfile_zones", steered_params(
+                {"qpfile": qpfile, "zones": "0,2,b=1.5/8,10,q=33"})(416, 240),
+            frames)
+    qps = [s["qp"] for s in enc.frame_stats]
+    types = "".join(s["type"] for s in enc.frame_stats)
+    if types.count("I") != 3 or not {27, 24, 38, 33} <= set(qps):
+        fail(f"encode_small qpfile_zones: types {types}, QPs {qps}: the "
+             "qpfile's keyframes or QPs or the q= zone are missing")
+    emit("encode_small", config="qpfile_zones", decoded_equals_recon=True,
+         **encode_numbers(enc, stream, t))
+    lad = ladder.AbrLadder(416, 240, [ladder.Rendition(416, 240, 400),
+                                      ladder.Rendition(208, 120, 150)])
+    recons = {i: {} for i in lad.encoders}
+    for i, enc in lad.encoders.items():
+        enc.recon_sink = (lambda idx, planes, _r=recons[i]:
+                          _r.__setitem__(idx, planes))
+    for f in frames:
+        lad.push(f)
+    out = lad.finish()
+    for i, stream in out.items():
+        pics = HEVCDecoder().decode(stream)
+        rec = [recons[i][k] for k in sorted(recons[i])]
+        w, h = lad.renditions[i].width, lad.renditions[i].height
+        if len(pics) != len(frames) or pics[0].y.shape != (h, w):
+            fail(f"encode_small ladder {w}x{h}: {len(pics)} pictures")
+        for pic, r in zip(pics, rec):
+            for a, b in zip((pic.y, pic.cb, pic.cr), r):
+                if not np.array_equal(np.asarray(a), np.asarray(b)):
+                    fail(f"encode_small ladder {w}x{h}: decoded != recon")
+        emit("encode_small", config=f"ladder {w}x{h}",
+             decoded_equals_recon=True,
+             **encode_numbers(lad.encoders[i], stream, 1.0))
+
 
 def main():
     t_start = time.time()
@@ -1693,6 +2050,10 @@ def main():
          bytes=len(stream), encode_seconds=t_enc, decoded_equals_recon=True,
          types=types, frame_qps=[s["qp"] for s in enc.frame_stats])
 
+    # the steered encodes at the same size: two passes, qpfile + zones, a
+    # two-rendition ladder
+    small_steered_phases()
+
     # ---- golden streams: the card against the JAX package's digests
     golden_phase()
 
@@ -1741,6 +2102,15 @@ def main():
             plain="first_minigop", size=(W4K, H4K),
             check=check_main10_hdr10(phase, n4k))
         del frames
+
+    # ---- the steered encodes at 1080p, on config 3's clip: two passes,
+    # analysis save/load with the --scale-factor 2 chain, the ABR ladder
+    frames = list(clip_crowd1080(W, H, 11, seed=40))
+    launches_by_path["encode_1080p_twopass"], _ = twopass_path(card, frames)
+    launches_by_path["encode_1080p_analysis_reuse"] = analysis_reuse_path(
+        card, frames)
+    launches_by_path["ladder_1080p"] = ladder_path(card, frames)
+    del frames
 
     # ---- the kernels' table (launches: the main paths' runs together,
     # each path's own count beside it; the lossless path launches none).

@@ -158,3 +158,30 @@ def test_sad_sweep_geometries_equal_plain_on_the_card(S, R, h, w):
                 cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R),
                 cuda_kernels.sad_sweep_argmin_plain(cur, ref, mvc, S, R)):
             assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 10])
+@pytest.mark.parametrize("oh,ow", [(540, 960), (720, 1280)])
+def test_scaler_on_the_card_equals_the_cpu(bits, oh, ow):
+    """io/scaler.py on the card against its CPU result on a 1080p plane:
+    area averaging (ratio 2) is integer and exact; the polyphase bank
+    (ratio 2/3) is two float32 products whose sums the card may round in
+    another order, so a sample may land one step away after rounding:
+    every sample within 1, and the count of those that differ reported."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from x265_tpu_torch.io.scaler import scale_plane
+    rng = np.random.default_rng(bits + oh)
+    maxv = (1 << bits) - 1
+    plane = rng.integers(0, maxv + 1, (1080, 1920)).astype(
+        np.uint16 if bits > 8 else np.uint8)
+    card = scale_plane(plane, oh, ow, device="cuda")
+    cpu = scale_plane(plane, oh, ow, device="cpu")
+    diff = np.abs(card.astype(np.int32) - cpu.astype(np.int32))
+    if oh * 2 == 1080:
+        assert diff.max() == 0
+    else:
+        assert diff.max() <= 1, int(diff.max())
+        print(f"polyphase {bits}-bit: {int((diff > 0).sum())} of "
+              f"{diff.size} samples differ")

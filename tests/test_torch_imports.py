@@ -51,6 +51,9 @@ def test_importing_every_module_loads_neither():
         "m.startswith('x265_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
+        "new = ['x265_tpu_torch.api.analysis_io', 'x265_tpu_torch.api.ladder',"
+        " 'x265_tpu_torch.io.scaler', 'x265_tpu_torch.io.reconplay']\n"
+        "assert all(n in names and n in sys.modules for n in new), new\n"
         "print(len(names))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True)
@@ -70,16 +73,19 @@ def _params(**kw):
 
 
 @pytest.mark.parametrize("name,kw", [
-    ("nr_intra", dict(nr_intra=5)), ("pass_num", dict(pass_num=2)),
-    ("zones", dict(zones="0,10,q=20")),
+    ("nr_intra", dict(nr_intra=5)), ("nr_inter", dict(nr_inter=5)),
+    ("ref 5", dict(ref=5)),
     ("hist_scenecut", dict(hist_scenecut=True)),
-    ("qpfile", dict(qpfile="frames.txt")),
+    ("frame_dup", dict(frame_dup=True, qpfile="<qpfile>")),
     ("frame_dup", dict(frame_dup=True)),
     ("intra_refresh", dict(intra_refresh=True)),
     ("tskip", dict(tskip=True)), ("slices", dict(slices=2)),
     ("wpp", dict(wpp=True)),
 ])
-def test_unsupported_option_raises_naming_it(name, kw):
+def test_unsupported_option_raises_naming_it(name, kw, tmp_path):
+    if kw.get("qpfile") == "<qpfile>":
+        (tmp_path / "qp.txt").write_text("1 I 30\n")
+        kw = dict(kw, qpfile=str(tmp_path / "qp.txt"))
     from x265_tpu_torch.api.encoder import Encoder
     with pytest.raises(NotImplementedError) as ei:
         Encoder(_params(**kw), device="cpu")
@@ -169,6 +175,44 @@ def test_main10_options_are_accepted(name, opts):
         assert enc.param.hdr10_opt and enc.sps.vui_present
 
 
+@pytest.mark.parametrize("name", ["pass_num 1", "pass_num 2", "zones",
+                                  "qpfile", "analysis_save",
+                                  "analysis_load"])
+def test_steered_options_are_accepted(name, tmp_path):
+    """Two-pass, zones, qpfile and analysis save/load are ported (they
+    raised until the slice that ported them): the encoder opens, reads
+    what it must read at once and keeps the option."""
+    from x265_tpu_torch.api.analysis_io import AnalysisWriter
+    from x265_tpu_torch.api.encoder import Encoder
+    f = str(tmp_path / "fixture")
+    kw = {"pass_num 1": dict(pass_num=1, stats_file=f),
+          "pass_num 2": dict(pass_num=2, stats_file=f),
+          "zones": dict(zones="0,10,q=20/11,20,b=1.5"),
+          "qpfile": dict(qpfile=f),
+          "analysis_save": dict(analysis_save=f),
+          "analysis_load": dict(analysis_load=f)}[name]
+    if name == "pass_num 2":
+        open(f, "w").write('{"type": "I", "bits": 8000, "qscale": 1.0}\n')
+    elif name == "qpfile":
+        open(f, "w").write("0 I 30\n5 K 20\n")
+    elif name == "analysis_load":
+        AnalysisWriter(f).close()
+    enc = Encoder(_params(**kw), device="cpu")
+    p = enc.param
+    if name.startswith("pass_num"):
+        assert enc.rc.pass_num == p.pass_num
+        assert (enc.rc.pass2_qp is not None) == (p.pass_num == 2)
+    elif name == "zones":
+        assert [z["start"] for z in enc.rc.zones] == [0, 11]
+    elif name == "qpfile":
+        assert enc._qpfile == {0: ("I", 30), 5: ("K", 20)}
+    elif name == "analysis_save":
+        enc.close()
+        assert open(f, "rb").read(9) == b"X265TPUA1"
+    else:
+        assert enc._areader.get() is None
+
+
 def test_bit_depth_raises():
     """12 bits stays refused (check_params refuses it in both packages,
     naming bit_depth); 10 is ported (test_main10_options_are_accepted)."""
@@ -224,8 +268,9 @@ def test_lookahead_and_rd_entry_points_default_to_cuda():
 
 def test_bframe_entry_points_default_to_cuda():
     """The B-frame entry points (the leaf-B batch's motion search and
-    intra analysis, the slice-type search) take device=None as CUDA and
-    raise before any work when there is no card."""
+    intra analysis, the slice-type search), the scaler (area and
+    polyphase) and the ABR ladder take device=None as CUDA and raise
+    before any work when there is no card."""
     import numpy as np
     import torch
     if torch.cuda.is_available():
@@ -237,7 +282,12 @@ def test_bframe_entry_points_default_to_cuda():
         submit_intra_analysis_batch)
     y = np.zeros((64, 64), np.uint8)
     low = np.zeros((32, 32), np.int32)
-    for call in (lambda: motion_fused_frames([y, y], [y, y], 64, 64,
+    from x265_tpu_torch.api.ladder import AbrLadder, Rendition
+    from x265_tpu_torch.io.scaler import scale_plane
+    for call in (lambda: scale_plane(y, 32, 32),
+                 lambda: AbrLadder(64, 64, [Rendition(64, 64, 100)]),
+                 lambda: scale_plane(y, 48, 48),
+                 lambda: motion_fused_frames([y, y], [y, y], 64, 64,
                                              do_bi=True),
                  lambda: submit_intra_analysis_batch([y, y], 64, 64),
                  lambda: batched_pair_costs([(low, low)]),

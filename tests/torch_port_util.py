@@ -133,18 +133,23 @@ def golden_encoders(name, tmpdir=None):
     """(port encoder, port stream, recons, JAX encoder, JAX stream,
     frames) of a golden case; fails when the committed entry is not the
     JAX package's. Both encoders count their VBV re-encodes. tmpdir
-    takes the case's fixture files (testclip.golden_params)."""
+    takes the case's fixture files (testclip.golden_params); each package
+    writes its own (the pass-1 or analysis-save encode of a case runs on
+    the package whose stream it feeds)."""
     from x265_tpu.api import params as JP
     from x265_tpu.api.encoder import Encoder as JEncoder
     from x265_tpu_torch.api import params as TP
     from x265_tpu_torch.api.encoder import Encoder as TEncoder
     from x265_tpu_torch.utils import testclip
     frames = testclip.golden_clip(name)
-    enc = TEncoder(testclip.golden_params(name, TP, tmpdir), device="cpu")
+
+    def port(p):
+        return TEncoder(p, device="cpu")
+    enc = port(testclip.golden_params(name, TP, tmpdir, encoder=port))
     recons = recon_collector(enc)
     stream, qp_maps = testclip.golden_stream(enc, name, frames)
-    jenc = count_reencodes(JEncoder(testclip.golden_params(name, JP,
-                                                           tmpdir)))
+    jenc = count_reencodes(JEncoder(testclip.golden_params(
+        name, JP, tmpdir, encoder=JEncoder)))
     ref, ref_qp_maps = testclip.golden_stream(jenc, name, frames)
     gold = testclip.golden_digests()[name]
     assert gold == {"sha256": hashlib.sha256(ref).hexdigest(),

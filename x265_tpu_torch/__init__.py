@@ -11,7 +11,7 @@ beside it, so every counterpart is found by name:
     csrc/      the CUDA C++ sources of those kernels (sm_90a)
     models/    whole-frame batched tensor graphs (plain PyTorch)
     engine/    motion search, mode decision, DPB planes, rate control
-    io/        Y4M reader/writer
+    io/        Y4M reader/writer, dither, the ladder's scaler, ReconPlay
     utils/     device choice, upload cache, profiling, state conversion
     native/    C++ CABAC slice writer, built with g++ at first use
 
@@ -19,9 +19,12 @@ Everything is eager PyTorch on an explicit device. Entry points take
 ``device=None``, which means the CUDA device; without one they raise
 unless the caller passes ``device="cpu"``.
 
-Covered so far: the low-latency I/P encode (``ultrafast`` ... ``fast``
-with ``zerolatency``, CQP, no B frames, no lookahead), with deblock, SAO,
-adaptive quantization and weighted prediction. ``Encoder`` raises
+Covered so far: the presets from ``ultrafast`` to ``slow`` (and above it
+at ``ref`` 4) with or without ``zerolatency``: CQP/CRF/ABR with VBV, the
+lookahead, B frames, the loop filters, AQ, weighted prediction, rd 3-4,
+RDOQ, lossless and all-intra, Main10 with scaling lists and HDR10, and
+the encodes steered from outside (two-pass, zones, qpfile, ROI maps,
+analysis save/load) with the ABR ladder. ``Encoder`` raises
 ``NotImplementedError`` for every option outside those slices.
 """
 

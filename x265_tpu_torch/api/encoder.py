@@ -21,7 +21,12 @@ passes on the device under rd 3, host rules below it), inter
 residual/recon on the device, CABAC in the native writer, then deblock +
 SAO statistics and the SAO apply on the device; the filtered planes stay
 there as the next pictures' reference. A P or I picture that would
-underflow the VBV buffer is encoded again at a higher QP.
+underflow the VBV buffer is encoded again at a higher QP. Encodes that
+something outside the encoder steers: two-pass ABR (--pass 1 writes the
+stats file at close(), --pass 2 plans from it), --zones, --qpfile
+(forced keyframes and QPs), ROI maps (set_ctu_info), analysis save/load
+(--analysis-save/--analysis-load, --scale-factor 2,
+set/get_analysis_data: a loaded picture skips its own analysis).
 Everything else raises NotImplementedError at construction.
 """
 from __future__ import annotations
@@ -149,13 +154,17 @@ def _check_supported(p) -> None:
     port does not encode yet — never silently encode something else."""
     bad = []
     for name in ("tskip", "wpp", "hist_scenecut", "frame_dup",
-                 "intra_refresh", "nr_intra", "nr_inter",
-                 "qpfile", "analysis_save", "analysis_load", "zones",
-                 "pass_num"):
+                 "intra_refresh", "nr_intra", "nr_inter"):
         if getattr(p, name, 0):
             bad.append(name)
     if p.slices > 1:
         bad.append("slices > 1")
+    if p.ref > 4:
+        # the native writer codes ref_idx against at most 4 references
+        # a list while the slice header announces them all: the JAX
+        # package's streams with ref 5 (the slower presets) desync a
+        # decoder at the first ref_idx
+        bad.append(f"ref {p.ref} (more than 4)")
     if p.bit_depth not in (8, 10):
         bad.append(f"bit_depth {p.bit_depth}")
     if bad:
@@ -290,7 +299,14 @@ class Encoder:
         # recon sink: called (display_index, (y, cb, cr)) per finished
         # picture in encode order
         self.recon_sink = None
-        # the decisions the most recent picture actually used
+        # x265_encoder_ctu_info analog: display-index -> [cty, cx] int QP
+        # offset map, folded into that picture's qp_map (needs AQ/dqp on)
+        self._ctu_info = {}
+        # in-memory analysis reuse (x265_encoder_set_analysis_data /
+        # x265_encoder_get_analysis_data, x265.h:2108-2170): a queue of
+        # FrameDecisions consumed by intra frames, and the decisions the
+        # most recent picture actually used
+        self._analysis_queue = []
         self._last_analysis = None
         self._last_sao = None        # SaoParams of the most recent picture
         self._last_weights = None    # (luma, chroma) weights of the last P
@@ -335,6 +351,68 @@ class Encoder:
         self._anchor_low = None      # lowres plane of the last anchor
         self._cutree = {}            # poc -> per-CTB cuTree QP offsets
         self.frame_stats = []        # per-frame records in encode order
+        self._awriter = self._areader = None
+        # --qpfile: "frameNumber frameType QP" per line (display order;
+        # x265 CLIOptions::parseQPFile). Type I/K forces a keyframe; the
+        # QP (when >= 0) overrides rate control for that picture.
+        self._qpfile = {}
+        if p.qpfile:
+            warned_types = set()
+            with open(p.qpfile) as f:
+                for line in f:
+                    parts = line.split()
+                    if len(parts) < 2 or parts[0].startswith("#"):
+                        continue
+                    try:
+                        idx = int(parts[0])
+                        typ = parts[1]       # case-significant: 'I' IDR,
+                        #                      'i'/'K' keyframe (CRA ok)
+                        qpv = int(parts[2]) if len(parts) > 2 else -1
+                    except ValueError:
+                        from x265_tpu_torch.api.params import _warn
+                        _warn(p, f"qpfile: skipping unparsable line: "
+                              f"{line.strip()!r}")
+                        continue
+                    if typ in ("P", "B", "b") and typ not in warned_types:
+                        warned_types.add(typ)
+                        from x265_tpu_torch.api.params import _warn
+                        _warn(p, "qpfile: P/B/b slice-type forcing is not "
+                              "supported (only I/i/K keyframes); the QP "
+                              "override is still honored")
+                    self._qpfile[idx] = (typ, qpv)
+        if p.analysis_save:
+            from x265_tpu_torch.api.analysis_io import AnalysisWriter
+            self._awriter = AnalysisWriter(p.analysis_save)
+        if p.analysis_load:
+            from x265_tpu_torch.api.analysis_io import AnalysisReader
+            self._areader = AnalysisReader(p.analysis_load)
+            if p.scale_factor == 2:
+                # --scale-factor 2: analysis saved at half resolution
+                # seeds this 2x encode (cli.rst:942-980 save/load chain)
+                from x265_tpu_torch.api.analysis_io import upscale_decisions
+                rdr = self._areader
+
+                class _Scaled:
+                    def get(self, _r=rdr, _c=p.ctb_log2):
+                        d = _r.get()
+                        if d is None:
+                            return None
+                        d = upscale_decisions(d, 2, _c)
+                        intra = (np.ones(d.cu_log2_map.shape, bool)
+                                 if d.inter8 is None else d.inter8 == 0)
+                        if (d.cu_log2_map[intra] > 5).any():
+                            # the JAX package fails here too (its writer
+                            # asserts): no intra TU split above 32x32
+                            raise NotImplementedError(
+                                "--scale-factor 2 made a 64x64 intra CU "
+                                "of a saved 32x32 one; the writer codes "
+                                "intra CUs up to 32x32 (use --ctu 32)")
+                        return d
+
+                    def close(self, _r=rdr):
+                        _r.close()
+
+                self._areader = _Scaled()
 
     # -- public API --
 
@@ -383,6 +461,15 @@ class Encoder:
         out = b""
         is_idr = (self.frame_count == 0 or
                   (p.keyint > 0 and self.frames_since_idr >= p.keyint))
+        qpf_entry = self._qpfile.get(self.frame_count)
+        qp_forced = None
+        force_closed = False          # 'I' = IDR even with --open-gop
+        if qpf_entry is not None:
+            if qpf_entry[0] in ("I", "i", "K"):
+                is_idr = True
+                force_closed = qpf_entry[0] == "I"
+            if qpf_entry[1] >= 0:
+                qp_forced = qpf_entry[1]
         # lookahead: needed by rate control and/or scenecut detection
         from x265_tpu_torch.api.params import RC_CQP
         need_la = (self.rc.mode != RC_CQP or
@@ -406,13 +493,13 @@ class Encoder:
             self._scenecut_frames.add(self.frame_count)
         self.frame_count += 1
         if is_idr:
-            if (p.open_gop and self.ipp and self.anchor is not None
-                    and self.frame_count > 1):
+            if (p.open_gop and not force_closed and self.ipp
+                    and self.anchor is not None and self.frame_count > 1):
                 # open GOP (x265 default; dpb.cpp:229 getNalUnitType):
                 # the keyframe is a CRA anchoring the open mini-GOP; the
                 # queued pictures become RASL leading pictures (decode
                 # after the CRA, display before it, reference across it)
-                out += self._emit_minigop(cra=(frame, cost))
+                out += self._emit_minigop(cra=(frame, cost, qp_forced))
                 self.frames_since_idr = 1
                 self._anchor_low = self.la.last_low if need_la else None
                 return out
@@ -423,7 +510,9 @@ class Encoder:
             self._gop_base = self.frame_count - 1
             self._input_idx = {0: self.frame_count - 1}
             self.frames_since_idr = 1
-            qp = self.rc.start(SLICE_I, cost)
+            qp = (self.rc.start_forced(SLICE_I, qp_forced, cost)
+                  if qp_forced is not None
+                  else self.rc.start(SLICE_I, cost))
             au = self._encode_intra_frame(*frame, decisions, qp=qp)
             au = self._vbv_reencode(au, lambda rq: self._encode_intra_frame(
                 *frame, decisions, qp=rq))
@@ -438,7 +527,7 @@ class Encoder:
         rec = self.la.last_blocks if need_la else None
         low = self.la.last_low if need_la else None
         self._input_idx[self.poc] = self.frame_count - 1
-        self.pending.append((self.poc, frame, cost, rec, low))
+        self.pending.append((self.poc, frame, cost, rec, low, qp_forced))
         self.poc += 1
         # queue depth: bframes+1 normally; with b-adapt the queue extends
         # to rc_lookahead frames so (a) anchor placement optimises over a
@@ -501,9 +590,9 @@ class Encoder:
         """End of encode: write 2-pass stats / close analysis files
         (x265_encoder_close analog)."""
         self.rc.write_stats()
-
-
-
+        if self._awriter is not None:
+            self._awriter.close()
+            self._awriter = None
 
     def _emit_minigop(self, cra=None) -> bytes:
         """One queued frame becomes the P anchor (coded first), earlier
@@ -512,23 +601,25 @@ class Encoder:
         window (slicetypePath reduced to one mini-GOP); without it, the
         whole queue forms one GOP (fixed bframes).
 
-        cra=(frame, cost): open-GOP keyframe — the given frame anchors
-        this mini-GOP as a CRA intra picture and every queued picture is
-        coded as a RASL_N leading picture."""
+        cra=(frame, cost, qp_forced): open-GOP keyframe — the given
+        frame anchors this mini-GOP as a CRA intra picture and every
+        queued picture is coded as a RASL_N leading picture."""
         from x265_tpu_torch.hevc.bitstream import NAL_CRA, NAL_RASL_N
         from x265_tpu_torch.utils.profiling import scope
         p = self.param
         queue = self.pending
         leftover = []
         if cra is not None:
-            cra_frame, cra_cost = cra
+            cra_frame, cra_cost, cra_qpf = cra
             cra_poc = self.poc
             self._input_idx[cra_poc] = self.frame_count - 1
             self.poc += 1
             bs = queue
             self.pending = []
             prev_anchor = self.anchor
-            qp = self.rc.start(SLICE_I, cra_cost)
+            qp = (self.rc.start_forced(SLICE_I, cra_qpf, cra_cost)
+                  if cra_qpf is not None
+                  else self.rc.start(SLICE_I, cra_cost))
             # the CRA's RPS must KEEP the prior anchors alive (used=0):
             # its leading RASL pictures reference them, and an empty RPS
             # would evict them from a conformant decoder's DPB
@@ -545,9 +636,9 @@ class Encoder:
             out = au
             new_anchor = (cra_poc, self._last_recon)
             out += self._run_b_pipeline(
-                [(frame_b, poc_b, prev_anchor, new_anchor, cost_b,
+                [(frame_b, poc_b, prev_anchor, new_anchor, cost_b, qpf_b,
                   dict(nal_override=NAL_RASL_N))
-                 for (poc_b, frame_b, cost_b, _rec, _low) in bs])
+                 for (poc_b, frame_b, cost_b, _rec, _low, qpf_b) in bs])
             # random-access point: nothing before the CRA may be
             # referenced afterwards
             self.anchor = new_anchor
@@ -571,8 +662,8 @@ class Encoder:
                                     device=self.device)
             leftover = queue[k + 1:]
             queue = queue[:k + 1]
-        (anchor_poc, anchor_frame, anchor_cost, anchor_rec,
-         anchor_low) = queue[-1]
+        (anchor_poc, anchor_frame, anchor_cost, anchor_rec, anchor_low,
+         anchor_qpf) = queue[-1]
         bs = queue[:-1]
         self.pending = leftover
         self._anchor_low = anchor_low
@@ -592,13 +683,21 @@ class Encoder:
             off = cutree_propagate(recs, p.ctb_log2, self.rc.qcompress)
             if off is not None:
                 self._cutree[anchor_poc] = off
+                if self.rc.pass_num == 1:   # ride the stats file
+                    self.rc.note_cutree(off)
         # VBV/ABR lookahead window: the mini-GOP's Bs + everything still
         # queued behind it (rateControlStart's updateVbvPlan analog)
         self.rc.set_lookahead(
             [(SLICE_B, e[2]) for e in bs]
             + [(SLICE_P if i % (self.bframes + 1) == self.bframes
                 else SLICE_B, e[2]) for i, e in enumerate(leftover)])
-        qp = self.rc.start(SLICE_P, anchor_cost)
+        qp = (self.rc.start_forced(SLICE_P, anchor_qpf, anchor_cost)
+              if anchor_qpf is not None
+              else self.rc.start(SLICE_P, anchor_cost))
+        if self.rc.pass_num == 2:     # reuse pass-1 cuTree offsets
+            ct2 = self.rc.cutree_from_stats()
+            if ct2 is not None:
+                self._cutree[anchor_poc] = ct2
         out = self._encode_p_frame(anchor_frame, anchor_poc,
                                    list(self.anchors), qp)
         # VBV emergency: band-graded re-encode(s) when the coded frame
@@ -618,8 +717,11 @@ class Encoder:
             # nearest anchors around them
             mid = len(bs) // 2
             poc_m, frame_m, cost_m = bs[mid][:3]
+            qpf_m = bs[mid][5]
             # referenced B sits between P and leaf-B on the QP ladder
-            qp = max(0, self.rc.start(SLICE_B, cost_m) - 2)
+            qp = (self.rc.start_forced(SLICE_B, qpf_m, cost_m)
+                  if qpf_m is not None
+                  else max(0, self.rc.start(SLICE_B, cost_m) - 2))
             au = self._encode_b_frame(frame_m, poc_m, prev_anchor,
                                       new_anchor, qp, as_ref=True)
             self.rc.end(len(au) * 8)
@@ -627,7 +729,7 @@ class Encoder:
             bref = (poc_m, self._bref_recon)
             rest = bs[:mid] + bs[mid + 1:]
         sched = []
-        for (poc_b, frame_b, cost_b, _rec, _low) in rest:
+        for (poc_b, frame_b, cost_b, _rec, _low, qpf_b) in rest:
             if bref is not None:
                 a0 = bref if bref[0] < poc_b else prev_anchor
                 a1 = bref if bref[0] > poc_b else new_anchor
@@ -636,21 +738,23 @@ class Encoder:
                         if x not in (a0[0], a1[0])]
             else:
                 a0, a1, keep = prev_anchor, new_anchor, []
-            sched.append((poc_b, frame_b, cost_b, a0, a1, keep))
+            sched.append((poc_b, frame_b, cost_b, a0, a1, keep, qpf_b))
         # batch the leaf-B analyses: one intra + one motion-search pass
         # per shared anchor pair, decided at an estimated QP before the
-        # pictures' own rate-control start
+        # pictures' own rate-control start. With --analysis-load every
+        # B picture takes its decisions from the file (the JAX package
+        # runs this batch there too and drops its result)
         self._bdec_cache = {}
         groups = {}
         for it in sched:
             groups.setdefault((it[3][0], it[4][0]), []).append(it)
         for items in groups.values():
-            if len(items) >= 2:
+            if len(items) >= 2 and self._areader is None:
                 self._precompute_b_batch(items, items[0][3][1],
                                          items[0][4][1])
         out += self._run_b_pipeline(
-            [(frame_b, poc_b, a0, a1, cost_b, dict(extra_keep=keep))
-             for (poc_b, frame_b, cost_b, a0, a1, keep) in sched])
+            [(frame_b, poc_b, a0, a1, cost_b, qpf_b, dict(extra_keep=keep))
+             for (poc_b, frame_b, cost_b, a0, a1, keep, qpf_b) in sched])
         self.anchor = new_anchor
         return out
 
@@ -663,7 +767,7 @@ class Encoder:
         pipeline depth, exactly x265's frame-threads contract
         (ratecontrol.h:209-221).
 
-        items: [(frame, poc, anchor0, anchor1, cost, kwargs)]
+        items: [(frame, poc, anchor0, anchor1, cost, qp_forced, kwargs)]
         """
         from collections import deque
         depth = max(1, int(self.param.frame_parallelism))
@@ -693,8 +797,10 @@ class Encoder:
             self.rc.end(len(au) * 8)
             out.append(au)
 
-        for (frame_b, poc_b, a0, a1, cost_b, kw) in items:
-            qp = self.rc.start(SLICE_B, cost_b)
+        for (frame_b, poc_b, a0, a1, cost_b, qpf_b, kw) in items:
+            qp = (self.rc.start_forced(SLICE_B, qpf_b, cost_b)
+                  if qpf_b is not None
+                  else self.rc.start(SLICE_B, cost_b))
             box = _Box(self._encode_b_frame_gen(frame_b, poc_b, a0, a1,
                                                 qp, **kw))
             box.advance()          # run to the in-flight yield point
@@ -892,9 +998,37 @@ class Encoder:
             l1 = [max(l0) + 1] if l0 else []
         return {"l0": l0, "l1": l1}
 
+    def set_analysis_data(self, decisions) -> None:
+        """x265_encoder_set_analysis_data: queue FrameDecisions for the
+        upcoming intra pictures (the in-memory twin of --analysis-load;
+        inter analysis reuse remains file-based)."""
+        if isinstance(decisions, FrameDecisions):
+            decisions = [decisions]
+        self._analysis_queue.extend(decisions)
 
+    def get_analysis_data(self):
+        """x265_encoder_get_analysis_data: the FrameDecisions the most
+        recent picture was coded with."""
+        return self._last_analysis
 
+    def set_ctu_info(self, display_idx: int, qp_offsets) -> None:
+        """x265_encoder_ctu_info analog: per-CTU QP offsets (an ROI map,
+        [pic_height_in_ctbs, pic_width_in_ctbs] ints) folded into that
+        display picture's qp_map. Requires AQ/cu_qp_delta signalling."""
+        if not self.pps.cu_qp_delta_enabled:
+            from x265_tpu_torch.api.params import _warn
+            _warn(self.param, "set_ctu_info needs cu_qp_delta "
+                  "(enable AQ); the offsets will be ignored")
+        self._ctu_info[display_idx] = np.asarray(qp_offsets, np.int32)
 
+    @staticmethod
+    def calculate_vmaf(*_args, **_kw):
+        """x265_calculate_vmaf analog — libvmaf is not available in this
+        build (x265 requires -DENABLE_LIBVMAF too). Use PSNR/SSIM from
+        get_stats instead."""
+        raise NotImplementedError(
+            "VMAF requires libvmaf, which this build does not bundle; "
+            "PSNR/SSIM are available via --psnr/--ssim and get_stats()")
 
     def get_stats(self):
         """x265_encoder_get_stats analog: global summary."""
@@ -939,18 +1073,23 @@ class Encoder:
                 delta_poc_s0=[k - poc for k in keep_pocs],
                 used_s0=[False] * len(keep_pocs))
         if decisions is None:
-            decisions = self._intra_decisions(y)
-            if p.rd_level >= 3:
-                # intra quadtree depth-1 RDO (compressIntraCU analog):
-                # promote 16-CU groups to 32 intra CUs where full
-                # T/Q/recon RD wins (models/intra_rdo)
-                from x265_tpu_torch.models.intra_rdo import \
-                    rd_intra_promote32
-                from x265_tpu_torch.utils.profiling import scope
-                with scope("rd_promote"):
-                    rd_intra_promote32((np.asarray(y), np.asarray(cb),
-                                        np.asarray(cr)), decisions, qp, p,
-                                       device=self.device)
+            if self._analysis_queue:
+                decisions = self._analysis_queue.pop(0)
+            elif self._areader:
+                decisions = self._areader.get()
+            else:
+                decisions = self._intra_decisions(y)
+                if p.rd_level >= 3:
+                    # intra quadtree depth-1 RDO (compressIntraCU
+                    # analog): promote 16-CU groups to 32 intra CUs
+                    # where full T/Q/recon RD wins (models/intra_rdo)
+                    from x265_tpu_torch.models.intra_rdo import \
+                        rd_intra_promote32
+                    from x265_tpu_torch.utils.profiling import scope
+                    with scope("rd_promote"):
+                        rd_intra_promote32(
+                            (np.asarray(y), np.asarray(cb), np.asarray(cr)),
+                            decisions, qp, p, device=self.device)
         slice_data, recon = self._inter_slice_data(
             (y, cb, cr), sh, decisions, ([], []), ((), ()), poc, SLICE_I)
         self._record_colmv(decisions, ((), ()), poc)
@@ -1031,7 +1170,9 @@ class Encoder:
             if wc is not None:
                 sh.chroma_log2_weight_denom = DENOM
                 sh.chroma_weights_l0 = [wc] + [None] * (n0 - 1)
-        decisions = self._p_decisions(y, me_refs, qp, frame=(y, cb, cr))
+        decisions = (self._areader.get() if self._areader
+                     else self._p_decisions(y, me_refs, qp,
+                                            frame=(y, cb, cr)))
         slice_data, recon = self._inter_slice_data(
             (y, cb, cr), sh, decisions, (refs_l0, []),
             (pocs_l0, ()), poc, SLICE_P)
@@ -1095,7 +1236,8 @@ class Encoder:
                 used_s1=[True] + [False] * len(pos_keep)),
             max_num_merge_cand=max(1, min(5, p.max_merge)),
         )
-        decisions = (self._bdec_cache.pop(poc, None)
+        decisions = (self._areader.get() if self._areader
+                     else self._bdec_cache.pop(poc, None)
                      or self._b_decisions(y, rec0, rec1, qp,
                                           frame=(y, cb, cr),
                                           ref_tuples=(rec0, rec1)))
@@ -1212,6 +1354,11 @@ class Encoder:
             ct = self._cutree.pop(poc, None)
             if ct is not None and ct.shape == off.shape:
                 off = off + ct
+            # x265_encoder_ctu_info analog: externally supplied per-CTU
+            # QP offsets (ROI maps) for this display picture
+            ci = self._ctu_info.pop(self._gop_base + poc, None)
+            if ci is not None and np.shape(ci) == off.shape:
+                off = off + np.asarray(ci, dtype=np.float64)
             grad = self.rc.band_grad_pending
             if grad:
                 # band-graded VBV emergency re-encode (rowVbvRateControl
@@ -1228,7 +1375,17 @@ class Encoder:
             # the spec's +-(26+QpBdOffsetY/2) coding range (7.4.9.10)
             off = np.clip(np.rint(off), -12, 12)
             decisions.qp_map = np.clip(sh.qp + off, 0, 51).astype(np.int32)
+        if decisions.qp_map is not None and decisions.qp_map.shape != (
+                -(-p.height // p.ctu_size), -(-p.width // p.ctu_size)):
+            # a loaded map of another CTB grid (--scale-factor 2 keeps
+            # the saved one): the writer would read past its end
+            raise ValueError(
+                f"qp_map {decisions.qp_map.shape} does not cover the "
+                "picture's CTBs; load the analysis with AQ and cuTree "
+                "off, or at the resolution it was saved at")
         self._last_analysis = decisions
+        if self._awriter is not None:
+            self._awriter.put(decisions)
         sao_on = bool(p.sao and not p.lossless)
         wp_native = None
         if (sh.luma_weights_l0 is not None

@@ -19,13 +19,29 @@ Usage:
     python -m x265_tpu_torch.cli --input in10.y4m --output out.hevc \
         --output-depth 8 [--dither]
 
+    python -m x265_tpu_torch.cli --input in.y4m --output out.hevc \
+        --preset medium --bitrate 4000 --pass 1 --stats run.log
+    python -m x265_tpu_torch.cli ... --pass 2 --stats run.log
+    python -m x265_tpu_torch.cli --input in.y4m --output out.hevc \
+        --preset medium --bitrate 4000 [--zones 0,24,b=1.5/48,72,q=22] \
+        [--qpfile frames.txt] [--analysis-save a.dat | --analysis-load
+        a.dat [--scale-factor 2]] [--recon rec.y4m] [--recon-play CMD]
+
 A 10-bit Y4M (C420p10) encodes as Main10; --output-depth 8 reduces it by
 rounding, or with --dither by row-wise error diffusion (io/dither.py).
 The presets without a tune code B frames: --bframes sets the longest run
 of B pictures between two anchors, --b-adapt 2 places the anchors by the
 lowres slice-type search (0: fixed mini-GOPs), --b-pyramid codes the
 middle B of a run of three or more as a reference for the others, and
---frame-threads is the number of B pictures in flight. Every other long
+--frame-threads is the number of B pictures in flight. --pass 1 writes
+the per-picture stats to --stats when the encode ends, and --pass 2
+plans its QPs from them; --zones overrides the rate control over picture
+ranges (q=QP or b=bitrate factor); --qpfile forces keyframes (I: an IDR,
+K/i: a keyframe that may be a CRA) and QPs by display index;
+--analysis-save writes every picture's decisions and --analysis-load
+codes with them instead of analysing (--scale-factor 2: saved at half
+the width and height); --recon and --recon-play receive the
+reconstructed pictures in display order. Every other long
 option of x265 (--deblock, --sao, --aq-mode, --aq-strength, --weightp and
 their --no- forms among them) goes through param_parse. Runs on the
 CUDA device unless --device says otherwise. Options outside the ported
@@ -58,6 +74,9 @@ def main(argv=None) -> int:
     ap.add_argument("--keyint", type=int, default=None)
     ap.add_argument("--frames", type=int, default=0, help="max frames (0=all)")
     ap.add_argument("--recon", default=None, help="write recon Y4M")
+    ap.add_argument("--recon-play", default=None, metavar="CMD",
+                    help="pipe recon Y4M to a player command "
+                         "(x265 --recon-y4m-exe)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
     ap.add_argument("--dither", action="store_true",
@@ -139,13 +158,20 @@ def main(argv=None) -> int:
                      "CU8%, CU16%, CU32%, CU64%")
         csv.write(cols + "\n")
 
-    # --recon writes the recon pictures as Y4M in display order (B
-    # pictures finish out of order; a picture coded again under VBV
-    # reports twice, and the last report is the one in the stream)
-    recon_frames = {}
-    if args.recon:
-        enc.recon_sink = lambda idx, planes: recon_frames.__setitem__(
-            idx, planes)
+    # recon sinks: --recon writes a Y4M file, --recon-play pipes to a
+    # player (x265 --recon-y4m-exe, source/output/reconplay.cpp). Both
+    # reorder encode-order arrivals back to display order by POC.
+    sinks = []
+    if args.recon or args.recon_play:
+        from x265_tpu_torch.io.reconplay import ReconPlay
+        rinfo = VideoInfo(p.width, p.height, p.fps_num, p.fps_den,
+                          bit_depth=p.bit_depth)
+        if args.recon:
+            sinks.append(ReconPlay("pipe:" + args.recon, rinfo))
+        if args.recon_play:
+            sinks.append(ReconPlay(args.recon_play, rinfo))
+        enc.recon_sink = lambda idx, planes: [s.write_frame(idx, planes)
+                                              for s in sinks]
 
     shift = info.bit_depth - p.bit_depth       # >0: reduce input depth
     if shift > 0 and args.dither:
@@ -197,14 +223,13 @@ def main(argv=None) -> int:
         tail = enc.flush()
         out.write(tail)
         total_bytes += len(tail)
+    # --pass 1 writes its stats and --analysis-save closes its file here
+    enc.close()
     el = time.time() - t_start
     if csv:
         csv.close()
-    if args.recon:
-        from x265_tpu_torch.io.y4m import write_y4m
-        write_y4m(args.recon, [recon_frames[i] for i in sorted(recon_frames)],
-                  VideoInfo(p.width, p.height, p.fps_num, p.fps_den,
-                            bit_depth=p.bit_depth))
+    for s in sinks:
+        s.close()
     fps = nframes / el if el > 0 else 0.0
     kbps = total_bytes * 8 * (p.fps_num / max(1, p.fps_den)) / max(1, nframes) / 1000
     st = enc.get_stats()

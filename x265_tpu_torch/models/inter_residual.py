@@ -175,8 +175,12 @@ def _inter_class_body(src_y, src_cb, src_cr,
         if wp is not None:
             # explicit weighted uni (L0 uni lanes only, 8.5.4.2.3.2).
             # int32 holds the product: |p14| < 2^15 and |weight| < 2^8;
-            # >> is arithmetic
-            we = wp[torch.where(use0, ref_i, 0).long(), pl]  # flag,w,off
+            # >> is arithmetic. The table holds 4 references; a 5th one
+            # (ref 5, the slower presets) reads the last row, as the JAX
+            # package's clamped gather does (only reference 0 carries a
+            # weight, so both rows are unweighted)
+            ri = torch.where(use0, ref_i, 0).clamp_(max=wp.shape[0] - 1)
+            we = wp[ri.long(), pl]                         # flag,w,off
             wflag = (we[:, 0] > 0) & use0 & ~use1
             denom = wld if pl == 0 else wcd                # one per slice
             log2wd = denom + 14 - bd

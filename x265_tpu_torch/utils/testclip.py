@@ -353,6 +353,31 @@ GOLDEN_CASES = {
          "max-cll": "1000,400", "dhdr10-info": "<fixture>",
          "dhdr10-opt": "1", "crf": "28"},
         "make_clip", 11),
+    # encodes steered from outside the encoder: two-pass ABR (the pass-1
+    # stats file is the fixture, written by a pass-1 encode of the same
+    # clip), a qpfile (a forced CRA, an IDR and QPs) with q= and b= zones,
+    # the --scale-factor 2 chain (the fixture is the analysis saved by an
+    # encode of the clip scaled to half size; 32x32 CTUs, no AQ, no
+    # cuTree and fixed mini-GOPs: see ROADMAP Queue 3), ROI maps
+    # (set_ctu_info on two pictures, GOLDEN_ROI)
+    "medium_twopass": (
+        "medium", None, {"bitrate": "100", "pass": "2",
+                         "stats": "<fixture>"}, "make_clip", 12),
+    "medium_qpfile_zones": (
+        "medium", None, {"crf": "28", "qpfile": "<fixture>",
+                         "zones": "0,2,b=1.5/8,10,q=33"}, "make_clip", 13),
+    "medium_analysis_load_sf2": (
+        "medium", None, {"bitrate": "100", "ctu": "32", "aq-mode": "0",
+                         "cutree": "0", "b-adapt": "0", "scenecut": "0",
+                         "analysis-load": "<fixture>", "scale-factor": "2"},
+        "make_clip", 14),
+    "medium_roi": ("medium", None, {"crf": "28"}, "make_clip", 15),
+    # x265's slower preset (bframes 8, subme 4, rd 6 with RDOQ, the
+    # lookahead clamped to 32 pictures) at ref 4: the port refuses its
+    # ref 5 (ROADMAP Queue 3); fixed mini-GOPs, so that one run of 8 B
+    # pictures is coded (b-adapt 2 places shorter runs on this clip)
+    "slower_crf": ("slower", None, {"crf": "28", "ref": "4",
+                                    "b-adapt": "0"}, "make_clip", 16),
 }
 GOLDEN_SIZE = (192, 128, 5)          # width, height, frames
 GOLDEN_CUT = 3                       # the scene cut of make_cut_clip cases
@@ -360,7 +385,24 @@ GOLDEN_CUT = 3                       # the scene cut of make_cut_clip cases
 GOLDEN_FRAMES = {"fast_crf": (11, None), "medium_crf_cut": (11, 7),
                  "medium_abr": (11, None), "slow_crf": (11, None),
                  "main10_medium_scaling": (11, None),
-                 "main10_slow_hdr10": (11, None)}
+                 "main10_slow_hdr10": (11, None),
+                 "medium_twopass": (11, None),
+                 "medium_qpfile_zones": (11, None),
+                 "medium_analysis_load_sf2": (11, None),
+                 "slower_crf": (10, None)}
+# the qpfile of medium_qpfile_zones (display index, type, QP): a B
+# picture's QP, a forced keyframe (a CRA under open GOP), an IDR that
+# closes the GOP, and a QP on a picture whose P type is not forced
+GOLDEN_QPFILE = "# frame type qp\n2 b 38\n4 K 27\n7 I 24\n9 P 30\n"
+# ROI maps of medium_roi: display index -> per-CTB QP offsets (the 2 x 3
+# CTBs of 192x128 at 64x64)
+GOLDEN_ROI = {"medium_roi": {1: [[6, 0, 0], [0, 0, -4]],
+                             3: [[-5, -5, -5], [3, 3, 3]]}}
+# a two-rendition ladder (api/ladder.AbrLadder, medium ABR) of one
+# source, area ratio 2: one golden digest per rendition
+GOLDEN_LADDER_SOURCE = (192, 128, 9, 17)      # width, height, frames, seed
+GOLDEN_LADDER = {"ladder_192x128": (192, 128, 150),
+                 "ladder_96x64": (96, 64, 50)}
 # cases whose stream is Encoder.encode's (the all-intra pipelined path),
 # not headers + encode_frame per picture + flush
 GOLDEN_PIPELINED = ("ultrafast_lossless_allintra", "medium_allintra_crf",
@@ -379,27 +421,52 @@ def golden_clip(name):
     return frames
 
 
-def golden_params(name, params_module, tmpdir=None):
+def golden_params(name, params_module, tmpdir=None, encoder=None):
     """The case's Param, built through the given package's api.params
     module (either package's: the option names are the same). A
-    "<fixture>" value of dhdr10-info becomes the HDR10+ file of the
-    case's length, written into tmpdir, which such a case needs (the
-    stream does not depend on the path; the encoder reads the file when
-    it opens)."""
+    "<fixture>" value becomes a file written into tmpdir, which such a
+    case needs (the stream does not depend on the path; the encoder reads
+    the file when it opens): the HDR10+ file of the case's length, the
+    qpfile, or what a first encode of the case writes (the pass-1 stats,
+    the analysis saved at half size), which `encoder` (the package's
+    Encoder as a function of a Param) runs."""
     import os
     preset, tune, opts = GOLDEN_CASES[name][:3]
-    p = params_module.param_default_preset(preset, tune)
+
+    def build(opts, size=GOLDEN_SIZE[:2]):
+        p = params_module.param_default_preset(preset, tune)
+        for k, v in opts.items():
+            params_module.param_parse(p, k, v)
+        p.width, p.height = size
+        return p
+    fixed = dict(opts)
     for k, v in opts.items():
-        if v == "<fixture>":
-            if tmpdir is None:
-                raise ValueError(f"golden case {name} needs a directory "
-                                 "for its fixture file")
+        if v != "<fixture>":
+            continue
+        if tmpdir is None or (k in ("stats", "analysis-load")
+                              and encoder is None):
+            raise ValueError(f"golden case {name} needs a directory and "
+                             "an encoder for its fixture file")
+        path = os.path.join(tmpdir, f"{name}.{k}")
+        if k == "dhdr10-info":
             n = GOLDEN_FRAMES.get(name, (GOLDEN_SIZE[2],))[0]
-            v = write_dhdr10_json(os.path.join(tmpdir, "hdr10plus.json"),
-                                  n)
-        params_module.param_parse(p, k, v)
-    p.width, p.height = GOLDEN_SIZE[:2]
-    return p
+            write_dhdr10_json(path, n)
+        elif k == "qpfile":
+            with open(path, "w") as f:
+                f.write(GOLDEN_QPFILE)
+        elif k == "stats":
+            encoder(build({**opts, "pass": "1", "stats": path})).encode(
+                golden_clip(name))
+        elif k == "analysis-load":
+            from x265_tpu_torch.io.scaler import scale_frame
+            w, h = GOLDEN_SIZE[0] // 2, GOLDEN_SIZE[1] // 2
+            pre = {o: x for o, x in opts.items()
+                   if o not in ("analysis-load", "scale-factor")}
+            encoder(build({**pre, "analysis-save": path}, (w, h))).encode(
+                [scale_frame(f, h, w, device="cpu")
+                 for f in golden_clip(name)])
+        fixed[k] = path
+    return build(fixed)
 
 
 def golden_stream(enc, name, frames):
@@ -412,6 +479,8 @@ def golden_stream(enc, name, frames):
     def note_qp():
         q = enc._last_analysis.qp_map
         qp_maps.append(None if q is None else q.astype(int).tolist())
+    for idx, off in GOLDEN_ROI.get(name, {}).items():
+        enc.set_ctu_info(idx, np.asarray(off, np.int32))
     if name in GOLDEN_PIPELINED:
         sink = enc.recon_sink
 
@@ -426,6 +495,21 @@ def golden_stream(enc, name, frames):
         stream += enc.encode_frame(*f)
         note_qp()
     return stream + enc.flush(), qp_maps
+
+
+def golden_ladder(ladder_module, **kw):
+    """({case: stream}, ladder) of the golden ladder: the source clip
+    pushed through the given package's api.ladder.AbrLadder (kw: its
+    device)."""
+    w, h, n, seed = GOLDEN_LADDER_SOURCE
+    names = list(GOLDEN_LADDER)
+    ladder = ladder_module.AbrLadder(
+        w, h, [ladder_module.Rendition(*GOLDEN_LADDER[k]) for k in names],
+        **kw)
+    for f in make_clip(w, h, n, seed):
+        ladder.push(f)
+    out = ladder.finish()
+    return {k: out[i] for i, k in enumerate(names)}, ladder
 
 
 def golden_digests():
