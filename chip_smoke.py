@@ -23,7 +23,13 @@ decoded back to the source itself; at 3840x2160 BASELINE config 4
 HDR10 and HDR10+ metadata); then the encodes steered from outside at
 1080p: bench.py config 3 in two passes, config 3 saved and loaded again
 through --analysis-save/--analysis-load with the --scale-factor 2 chain
-beside it, and an ABR ladder of three renditions scaled on the card —
+beside it, and an ABR ladder of three renditions scaled on the card;
+then the stream-structure options: small encodes with WPP, slices,
+transform skip, noise reduction, frame-dup with the histogram scene cut
+and intra refresh (decoded by the port's decoder and by libde265 where
+the system has it), the assertion mode (X265TPU_CHECKIFY=1) on the card,
+and at 1080p the live encode with the robustness options and config 3 in
+four slices with transform skip and noise reduction —
 and checks that each went through every kernel of its path. Every kernel is held on 8-bit and on 10-bit samples. One JSON line per phase; any failure ends the
 run with a non-zero exit code and no result line.
 """
@@ -72,8 +78,14 @@ W4K, H4K = 3840, 2160
 FAR = [1 << 20, -(1 << 20), -1, 5]    # origins far outside a plane
 
 
+T0 = time.time()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line a phase; "at_s" is the seconds since the script
+    started (where the run's time went)."""
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": round(time.time() - T0, 1)}), flush=True)
 
 
 def fail(msg):
@@ -273,6 +285,26 @@ def main10_params(w, h, dhdr10_path):
         param_parse(p, k, v)
     p.width, p.height = w, h
     p.fps_num, p.fps_den = 25, 1
+    return p
+
+
+def live_robust_params(w, h):
+    """live_params with the live streamer's robustness options: WPP
+    substreams, the intra-refresh column sweep, the luma-histogram scene
+    cut and dropped duplicates (--frame-dup)."""
+    p = live_params(w, h)
+    for k in ("wpp", "intra-refresh", "hist-scenecut", "frame-dup"):
+        param_parse(p, k, "1")
+    return p
+
+
+def medium_slices_params(w, h):
+    """bench.py config 3 (medium_params) as a broadcaster slices it: four
+    slices a picture, transform skip for graphics, and DCT-domain noise
+    reduction of inter blocks at 400 for a noisy camera."""
+    p = medium_params(w, h)
+    for k, v in (("slices", "4"), ("tskip", "1"), ("nr-inter", "400")):
+        param_parse(p, k, v)
     return p
 
 
@@ -1233,7 +1265,11 @@ OFF_PATH = {"encode_1080p": LOW_LATENCY_OFF_PATH,
             # encodes skip the motion search: their save encodes run it)
             "encode_1080p_twopass": ("sad_sweep",),
             "encode_1080p_analysis_reuse": ("sad_sweep",),
-            "ladder_1080p": ("sad_sweep",)}
+            "ladder_1080p": ("sad_sweep",),
+            # --frame-dup makes zerolatency's queue two deep, so the live
+            # robust path codes B pictures too (ROADMAP Queue 3)
+            "encode_1080p_live_robust": ("sad_sweep",),
+            "encode_1080p_medium_slices": ("sad_sweep",)}
 # the kernels of the motion search, which an encode that loads its
 # decisions must not launch
 MOTION_KERNELS = ("tile_gather_planes", "tile_gather_planes_satd",
@@ -1357,14 +1393,21 @@ def golden_phase():
              ctus_with_other_qp=flips)
 
 
+def first_slices(stream):
+    """The NAL types of a stream's pictures: its VCL NAL units that start
+    a picture (first_slice_segment_in_pic_flag, the slice header's first
+    bit)."""
+    return [(n[0] >> 1) & 0x3F for n in split_annexb(stream)
+            if ((n[0] >> 1) & 0x3F) < 32 and n[2] & 0x80]
+
+
 def check_b_structure(phase, enc, stream):
     """Frame types in encode order: I first, at least two P and four B,
     and wherever a mini-GOP holds three or more B pictures, the first one
     coded after its P anchor is the pyramid's referenced B (a TRAIL_R
     slice). Returns the types and the slices' NAL types."""
     types = "".join(s["type"] for s in enc.frame_stats)
-    vcl = [(n[0] >> 1) & 0x3F for n in split_annexb(stream)
-           if ((n[0] >> 1) & 0x3F) < 32]
+    vcl = first_slices(stream)
     if len(vcl) != len(types):
         fail(f"{phase}: {len(vcl)} slices for {len(types)} pictures")
     if (types[0] != "I" or types.count("P") < 2 or types.count("B") < 4):
@@ -1450,21 +1493,31 @@ def plain_first_minigop(params_fn, frames, size):
     return stream, len(enc.frame_stats)
 
 
+# fps and stage seconds of each main path of this run (main_path fills it)
+PATH_NUMBERS = {}
+
+
 def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
-              plain="prefix", size=(W, H), check=None):
+              plain="prefix", size=(W, H), check=None, setup=None,
+              prefix=3):
     """One main path: the frames through Encoder.encode with the launch
     counts set to 0 just before and read just after; then the frames
     again with the plain versions, which must give the same bytes: the
     first 3 frames (plain="prefix", a prefix of the stream) or, for a
     path with B frames, whose GOPs a shorter clip changes, the whole clip
-    ("whole") or the pictures up to the first mini-GOP ("first_minigop").
+    ("whole") or the pictures up to the first mini-GOP ("first_minigop");
+    prefix: the number of frames of "prefix".
     types_want: the frame types in encode order, or None for the B-frame
     checks of check_b_structure. size: (width, height); check: a function
     of (encoder, stream) whose dict joins the phase's line (it calls fail
-    itself). Returns the launch counts and the launches of the integer
-    search."""
+    itself); setup: a function called with the encoder before it encodes
+    (to attach the spies a check reads). Returns the launch counts and the
+    launches of the integer search; the fps and stage seconds go into
+    PATH_NUMBERS."""
     devcache.clear()
     enc = Encoder(params_fn(*size))
+    if setup is not None:
+        setup(enc)
     by_kind = attribute_launches(enc)
     int_stage = {"launches": 0, "shapes": set()}
     profiling.reset()
@@ -1523,7 +1576,7 @@ def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
         extra["dense_launches"] = int_stage["launches"]
     # the same frames with the plain versions forced on the card
     devcache.clear()
-    plain_frames = len(frames) if plain != "prefix" else 3
+    plain_frames = len(frames) if plain != "prefix" else prefix
     t0 = time.time()
     with plain_versions():
         cuda_mc.reset_launches()
@@ -1548,6 +1601,9 @@ def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
         for t in "PB" if types.count(t)}
     per_type["launches_outside_pictures"] = {
         k: v - sum(by_kind[t][k] for t in "PIB") for k, v in launches.items()}
+    PATH_NUMBERS[phase] = {"fps": len(frames) / t_enc, "seconds": t_enc,
+                           "frames": len(frames), "pictures": len(types),
+                           "stage_seconds": stages}
     emit(phase, card=card, frames=len(frames), types=types,
          bytes=len(stream), seconds=t_enc, fps=len(frames) / t_enc,
          stage_seconds=stages, launches=launches, **per_type,
@@ -1978,6 +2034,257 @@ def small_steered_phases():
              **encode_numbers(lad.encoders[i], stream, 1.0))
 
 
+def decode_checked(what, stream, recons, n, decode_order=None):
+    """Decode a stream with the port's decoder (display order) and, where
+    the system has it, libde265 (decoder/de265.py), each to the encoder's
+    recons; recons: {display index: planes}; decode_order: the display
+    indices in the order libde265 outputs them, when that is not display
+    order. Returns the transform-skip TBs the port's decoder read and
+    what libde265 did ("absent" where it is not installed)."""
+    from x265_tpu_torch.decoder import de265
+    from x265_tpu_torch.decoder import decoder as dec_mod
+    hits = []
+    tsr = dec_mod.transform_skip_residual
+    dec_mod.transform_skip_residual = lambda *a: hits.append(1) or tsr(*a)
+    try:
+        pics = HEVCDecoder().decode(stream)
+    finally:
+        dec_mod.transform_skip_residual = tsr
+    order = sorted(recons)
+    if len(pics) != n or len(order) != n:
+        fail(f"{what}: {len(pics)} pictures decoded, {len(order)} recons, "
+             f"{n} expected")
+    for pic, i in zip(pics, order):
+        for a, b in zip((pic.y, pic.cb, pic.cr), recons[i]):
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                fail(f"{what}: decoded picture {i} != encoder recon")
+    if not de265.available():
+        return len(hits), "absent"
+    ext = de265.decode(stream)
+    if len(ext) != n:
+        fail(f"{what}: libde265 decoded {len(ext)} of {n} pictures")
+    for pic, i in zip(ext, decode_order or order):
+        for a, b in zip(pic, recons[i]):
+            if not np.array_equal(a, np.asarray(b)):
+                fail(f"{what}: libde265's picture {i} != encoder recon")
+    return len(hits), "equal"
+
+
+def small_structure_phases():
+    """The stream-structure options at 416x240 (416x232 for transform
+    skip: its bottom 8 lines are 8x8 CUs, whose 4x4 chroma TBs it can
+    take), each decoded back by the port's decoder and by libde265 where
+    present: WPP, 3 slices, transform skip, noise reduction, and frame-dup
+    with the histogram scene cut and intra refresh; then an encode under
+    X265TPU_CHECKIFY=1 that must give the unchecked bytes, and a bad QP
+    that the checked transform chain must refuse on the card."""
+    from x265_tpu_torch.models.residual import tq_chain
+    from x265_tpu_torch.utils import checks
+    crowd = list(clip_crowd1080(416, 240, 11, seed=40))
+    cases = (
+        ("wpp", steered_params({"wpp": "1"}, 400)(416, 240), crowd),
+        ("slices3", steered_params({"slices": "3"}, 400)(416, 240), crowd),
+        ("tskip", steered_params({"tskip": "1"}, 400)(416, 232),
+         testclip.make_screen_clip(416, 232, 11, seed=20)),
+        ("nr", steered_params({"nr-intra": "200", "nr-inter": "500"},
+                              400)(416, 240), crowd),
+        ("dup_hist_refresh", live_robust_params(416, 240),
+         testclip.make_dup_cut_clip(416, 240, 8, seed=11, dup=2, cut=5)))
+    for label, p, frames in cases:
+        if label == "dup_hist_refresh":
+            p.scenecut = 0            # the histogram decides the cut
+        devcache.clear()
+        enc = Encoder(p)
+        recons, order = {}, []
+
+        def sink(idx, planes, _r=recons, _o=order):
+            _r[idx] = planes
+            _o.append(idx)
+        enc.recon_sink = sink
+        t0 = time.time()
+        stream = enc.encode(frames)
+        t_enc = time.time() - t0
+        pics = testclip.stream_structure(stream)
+        dropped = len(frames) - len(pics)
+        # (a picture coded again under VBV reports twice in a row)
+        order = list(dict.fromkeys(order))
+        tskip_tbs, ext = decode_checked(
+            f"encode_small {label}", stream, recons, len(pics),
+            decode_order=order if label == "dup_hist_refresh" else None)
+        rows = p.pic_height_in_ctbs
+        extra = {}
+        if label == "wpp" and any(x["slices"] != [(0, rows - 1)]
+                                  for x in pics):
+            fail(f"encode_small wpp: entry points {pics}")
+        if label == "slices3":
+            b = [round(i * rows / 3) for i in range(4)]
+            want = [(b[i] * p.pic_width_in_ctbs, 0) for i in range(3)]
+            if any(x["slices"] != want for x in pics):
+                fail(f"encode_small slices3: segments {pics}, want {want}")
+        if label == "tskip" and not tskip_tbs:
+            fail("encode_small tskip: no transform-skip TB in the stream")
+        if label == "nr" and not enc._nr["cnt"][8:].any():
+            fail("encode_small nr: no inter statistics gathered")
+        if label == "dup_hist_refresh":
+            ps = [x["pic_struct"] for x in pics]
+            rec = [x["recovery"] for x in pics if x["recovery"] is not None]
+            if (dropped != 1 or ps.count(7) != 1
+                    or enc._scenecut_frames != {5}
+                    or rec != [p.pic_width_in_ctbs - 1]):
+                fail(f"encode_small dup_hist_refresh: dropped {dropped}, "
+                     f"pic_struct {ps}, cuts {enc._scenecut_frames}, "
+                     f"recovery {rec}")
+            extra = {"pic_struct": ps, "recovery_poc_cnt": rec[0],
+                     "scenecut_frames": sorted(enc._scenecut_frames)}
+        emit("encode_small", config=label, frames=len(frames),
+             pictures=len(pics), bytes=len(stream), encode_seconds=t_enc,
+             decoded_equals_recon=True, de265=ext,
+             transform_skip_tbs=tskip_tbs,
+             slices=pics[0]["slices"],
+             types="".join(s["type"] for s in enc.frame_stats), **extra)
+    # the assertion mode: an encode with the checks on gives the same
+    # bytes, and a bad QP raises on the card with the JAX package's message
+    p = steered_params({}, 400)(416, 240)
+    streams = []
+    for on in ("0", "1"):
+        os.environ["X265TPU_CHECKIFY"] = on
+        devcache.clear()
+        streams.append(Encoder(p).encode(crowd[:5]))
+    os.environ.pop("X265TPU_CHECKIFY")
+    if streams[0] != streams[1]:
+        fail("encode_small checkify: the checked encode's bytes differ")
+    resi = torch.zeros((4, 16, 16), dtype=torch.int32, device=DEV)
+    sel = torch.zeros(4, dtype=torch.int32, device=DEV)
+    os.environ["X265TPU_CHECKIFY"] = "1"
+    try:
+        tq_chain(resi, torch.full((4,), 99, dtype=torch.int32, device=DEV),
+                 sel, 16, False, False, 8, True, True, False)
+        fail("checkify: QP 99 did not raise on the card")
+    except checks.CheckError as e:
+        message = str(e)
+    finally:
+        os.environ.pop("X265TPU_CHECKIFY")
+    if "QP out of range" not in message:
+        fail(f"checkify: raised {message!r}")
+    ok = tq_chain(resi, torch.full((4,), 30, dtype=torch.int32, device=DEV),
+                  sel, 16, False, False, 8, True, True, False)
+    torch.cuda.synchronize()                 # the context is still usable
+    emit("checkify", checked_stream_equals_unchecked=True,
+         bad_qp_raised=message, context_usable_after=bool(
+             ok[2].shape == (4,)))
+
+
+def live_robust_checks(log):
+    """The checks of encode_1080p_live_robust: 16 entry points a slice (17
+    CTB rows at 64), one pic_struct 7 (the dropped duplicate's
+    predecessor), the refresh column intra in every P picture (log: what
+    _apply_intra_refresh forced, from refresh_spy), the recovery point
+    SEI of the cycle's start, and the keyframe at the scene cut."""
+    def check(enc, stream):
+        p = enc.param
+        pics = testclip.stream_structure(stream)
+        rows = p.pic_height_in_ctbs
+        if any(x["slices"] != [(0, rows - 1)] for x in pics):
+            fail(f"encode_1080p_live_robust: slices {pics[0]['slices']}, "
+                 f"want one with {rows - 1} entry points")
+        ps = [x["pic_struct"] for x in pics]
+        if ps.count(7) != 1 or len(pics) != 7:
+            fail(f"encode_1080p_live_robust: pic_struct {ps} over "
+                 f"{len(pics)} pictures (one dropped of 8)")
+        n_p = sum(s["type"] == "P" for s in enc.frame_stats)
+        w8 = p.ctu_size >> 3
+        if len(log) != n_p or any(
+                inter8[:, c * w8:(c + 1) * w8].any()
+                or (cu[:, c * w8:(c + 1) * w8] > 5).any()
+                for c, inter8, cu in log):
+            fail(f"encode_1080p_live_robust: the refresh column is not "
+                 f"intra in every one of {n_p} P pictures ({len(log)} "
+                 "refreshed)")
+        rec = [x["recovery"] for x in pics if x["recovery"] is not None]
+        if rec != [p.pic_width_in_ctbs - 1]:
+            fail(f"encode_1080p_live_robust: recovery point SEIs {rec}")
+        cra = [i for i, x in enumerate(pics) if x["nal"] == 21]
+        if enc._scenecut_frames != {4} or len(cra) != 1:
+            fail(f"encode_1080p_live_robust: cut at "
+                 f"{enc._scenecut_frames}, CRAs at {cra}")
+        return {"entry_points_per_slice": rows - 1, "pic_struct": ps,
+                "refresh_columns": [c for c, _, _ in log],
+                "recovery_poc_cnt": rec[0],
+                "scenecut_frames": sorted(enc._scenecut_frames),
+                "stage_calls": {st: v["calls"] for st, v in
+                                profiling.report().items()}}
+    return check
+
+
+def refresh_spy(log):
+    """A main_path setup: record the column each _apply_intra_refresh call
+    forces and the decisions after it."""
+    def setup(enc):
+        orig = enc._apply_intra_refresh
+
+        def run(dec):
+            col = enc._ir_col % enc.param.pic_width_in_ctbs
+            orig(dec)
+            log.append((col, dec.inter8.copy(), dec.cu_log2_map.copy()))
+        enc._apply_intra_refresh = run
+    return setup
+
+
+def medium_slices_checks(offsets, recons):
+    """The checks of encode_1080p_medium_slices: four slices a picture at
+    the bands' segment addresses, noise-reduction offsets nonzero once an
+    inter picture has been coded (offsets: what _nr_offsets returned), and
+    the stream decoded by the port's decoder to the encoder's recons with
+    transform-skip TBs in it (recons: {display index: planes}; both from
+    slices_spy). Transform skip takes only the 4x4 chroma TBs of the 8x8
+    CUs of the bottom 8 lines, and few of them: the whole stream is
+    decoded to find them."""
+    def check(enc, stream):
+        p = enc.param
+        rows, wc = p.pic_height_in_ctbs, p.pic_width_in_ctbs
+        b = [round(i * rows / 4) for i in range(5)]
+        want = [(b[i] * wc, 0) for i in range(4)]
+        pics = testclip.stream_structure(stream)
+        if any(x["slices"] != want for x in pics):
+            fail(f"encode_1080p_medium_slices: segments {pics[0]}, "
+                 f"want {want}")
+        # --nr-inter only: zero offsets until the first inter picture has
+        # been coded (the I picture and the P anchor after it), nonzero
+        # inter offsets on every picture after that
+        nz = [int((o != 0).sum()) for o in offsets]
+        if (any(nz[:2]) or not all(nz[2:])
+                or any(o[:8].any() for o in offsets)):
+            fail(f"encode_1080p_medium_slices: NR offsets by picture {nz}")
+        t0 = time.time()
+        hits, ext = decode_checked("encode_1080p_medium_slices", stream,
+                                   recons, len(pics))
+        if not hits:
+            fail("encode_1080p_medium_slices: no transform-skip TB in the "
+                 "stream")
+        return {"segment_addresses": [a for a, _ in want],
+                "transform_skip_tbs": hits, "decoded_equals_recon": True,
+                "de265": ext, "decode_seconds": time.time() - t0,
+                "nr_offsets_nonzero_by_picture": nz,
+                "stage_calls": {st: v["calls"] for st, v in
+                                profiling.report().items()}}
+    return check
+
+
+def slices_spy(offsets, recons):
+    """A main_path setup: record the offsets each _nr_offsets call gives,
+    and each picture's recon by display index."""
+    def setup(enc):
+        orig = enc._nr_offsets
+
+        def run():
+            off = orig()
+            offsets.append(off.copy())
+            return off
+        enc._nr_offsets = run
+        enc.recon_sink = lambda idx, planes: recons.__setitem__(idx, planes)
+    return setup
+
+
 def main():
     t_start = time.time()
     card = smi()
@@ -2053,6 +2360,8 @@ def main():
     # the steered encodes at the same size: two passes, qpfile + zones, a
     # two-rendition ladder
     small_steered_phases()
+    # the stream-structure options, the checked encode and a bad QP
+    small_structure_phases()
 
     # ---- golden streams: the card against the JAX package's digests
     golden_phase()
@@ -2086,6 +2395,33 @@ def main():
                  "first_minigop")
         launches_by_path[phase], dense_by_path[phase] = main_path(
             phase, params_fn, frames, card, types, stages, plain=plain)
+
+    # ---- the stream-structure paths at 1080p: the live encode with the
+    # robustness options (8 frames of the live clip, its picture 2 a copy
+    # of picture 1, so 7 are coded), and config 3 sliced in four with
+    # transform skip and noise reduction (11 frames of the crowd clip)
+    live = make_cut_clip(W, H, 8, seed=11, cut=4)
+    live[2] = tuple(pl.copy() for pl in live[1])
+    log, offsets, recons = [], [], {}
+    launches_by_path["encode_1080p_live_robust"], _ = main_path(
+        "encode_1080p_live_robust", live_robust_params, live, card,
+        "IPBIPBP", ("lookahead", "rd_adopt", "rd_promote", "finalize"),
+        prefix=4, check=live_robust_checks(log), setup=refresh_spy(log))
+    del live, log
+    launches_by_path["encode_1080p_medium_slices"], _ = main_path(
+        "encode_1080p_medium_slices", medium_slices_params,
+        list(clip_crowd1080(W, H, 11, seed=40)), card, None,
+        ("slicetype", "lookahead", "motion", "rd_adopt", "rd_promote",
+         "loopfilter", "finalize"), plain="first_minigop",
+        check=medium_slices_checks(offsets, recons),
+        setup=slices_spy(offsets, recons))
+    del recons
+    # the stage seconds of the two beside the paths they extend, from this
+    # call
+    emit("structure_paths", card=card, **{
+        k: PATH_NUMBERS[k] for k in (
+            "encode_1080p_live", "encode_1080p_live_robust",
+            "encode_1080p_medium", "encode_1080p_medium_slices")})
 
     # ---- BASELINE config 4 at 3840x2160: Main10, slow, scaling lists,
     # HDR10 and HDR10+ metadata (a file in a temporary directory), 11

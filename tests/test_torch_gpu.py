@@ -185,3 +185,33 @@ def test_scaler_on_the_card_equals_the_cpu(bits, oh, ow):
         assert diff.max() <= 1, int(diff.max())
         print(f"polyphase {bits}-bit: {int((diff > 0).sum())} of "
               f"{diff.size} samples differ")
+
+
+@pytest.mark.gpu
+def test_checked_tq_chain_on_the_card(monkeypatch):
+    """X265TPU_CHECKIFY=1 on the card: a clean batch gives the unchecked
+    chain's outputs (and the CPU's); QP 99 raises with the JAX package's
+    message, and the CUDA context stays usable (no device assert)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from x265_tpu_torch.models.residual import tq_chain
+    from x265_tpu_torch.utils import checks
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    resi = T(rng.integers(-200, 201, (8, 16, 16)).astype(np.int32))
+    qp = torch.full((8,), 30, dtype=torch.int32)
+    sel = torch.zeros(8, dtype=torch.int32)
+    args = (16, False, False, 8, True, True, False)
+    monkeypatch.delenv("X265TPU_CHECKIFY", raising=False)
+    want = tq_chain(resi, qp, sel, *args)
+    plain = tq_chain(resi.to(dev), qp.to(dev), sel.to(dev), *args)
+    monkeypatch.setenv("X265TPU_CHECKIFY", "1")
+    got = tq_chain(resi.to(dev), qp.to(dev), sel.to(dev), *args)
+    for a, b, c in zip(got, plain, want):
+        assert torch.equal(a.cpu(), b.cpu()) and torch.equal(a.cpu(), c)
+    with pytest.raises(checks.CheckError, match="QP out of range"):
+        tq_chain(resi.to(dev), torch.full((8,), 99, dtype=torch.int32,
+                                          device=dev), sel.to(dev), *args)
+    again = tq_chain(resi.to(dev), qp.to(dev), sel.to(dev), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0].cpu(), want[0])

@@ -52,7 +52,8 @@ def test_importing_every_module_loads_neither():
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
         "new = ['x265_tpu_torch.api.analysis_io', 'x265_tpu_torch.api.ladder',"
-        " 'x265_tpu_torch.io.scaler', 'x265_tpu_torch.io.reconplay']\n"
+        " 'x265_tpu_torch.io.scaler', 'x265_tpu_torch.io.reconplay',"
+        " 'x265_tpu_torch.utils.checks', 'x265_tpu_torch.decoder.de265']\n"
         "assert all(n in names and n in sys.modules for n in new), new\n"
         "print(len(names))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -72,24 +73,53 @@ def _params(**kw):
     return p
 
 
+@pytest.mark.parametrize("name,kw", [("ref 5", dict(ref=5))],
+                         ids=["ref 5-kw2"])
+def test_unsupported_option_raises_naming_it(name, kw):
+    from x265_tpu_torch.api.encoder import Encoder
+    with pytest.raises(NotImplementedError) as ei:
+        Encoder(_params(**kw), device="cpu")
+    assert name in str(ei.value)
+
+
 @pytest.mark.parametrize("name,kw", [
     ("nr_intra", dict(nr_intra=5)), ("nr_inter", dict(nr_inter=5)),
-    ("ref 5", dict(ref=5)),
     ("hist_scenecut", dict(hist_scenecut=True)),
-    ("frame_dup", dict(frame_dup=True, qpfile="<qpfile>")),
+    ("frame_dup qpfile", dict(frame_dup=True, qpfile="<qpfile>")),
     ("frame_dup", dict(frame_dup=True)),
     ("intra_refresh", dict(intra_refresh=True)),
     ("tskip", dict(tskip=True)), ("slices", dict(slices=2)),
     ("wpp", dict(wpp=True)),
 ])
-def test_unsupported_option_raises_naming_it(name, kw, tmp_path):
+def test_structure_options_encode(name, kw, tmp_path):
+    """The stream-structure and live-robustness options are ported (they
+    raised until the slice that ported them): the encoder opens, signals
+    each where the stream carries it, and encodes two pictures with it
+    that the port's decoder reads back to the encoder's recon."""
     if kw.get("qpfile") == "<qpfile>":
         (tmp_path / "qp.txt").write_text("1 I 30\n")
         kw = dict(kw, qpfile=str(tmp_path / "qp.txt"))
+    import numpy as np
     from x265_tpu_torch.api.encoder import Encoder
-    with pytest.raises(NotImplementedError) as ei:
-        Encoder(_params(**kw), device="cpu")
-    assert name in str(ei.value)
+    from x265_tpu_torch.decoder.decoder import HEVCDecoder
+    from x265_tpu_torch.utils.testclip import make_clip
+    enc = Encoder(_params(**kw), device="cpu")
+    assert enc.sps.frame_field_info == bool(kw.get("frame_dup"))
+    assert enc.pps.transform_skip_enabled == bool(kw.get("tskip"))
+    assert enc.pps.entropy_coding_sync_enabled == bool(kw.get("wpp"))
+    assert (enc._nr is not None) == bool(kw.get("nr_intra")
+                                         or kw.get("nr_inter"))
+    recons = {}
+    enc.recon_sink = lambda i, planes: recons.__setitem__(i, planes)
+    frames = make_clip(64, 64, 2, seed=5)
+    stream = enc.encode(frames)
+    pics = HEVCDecoder().decode(stream)
+    assert len(pics) == len(recons) == 2
+    for pic, i in zip(pics, sorted(recons)):
+        for a, b in zip((pic.y, pic.cb, pic.cr), recons[i]):
+            assert np.array_equal(np.asarray(a), np.asarray(b))
+    if name.startswith("nr_"):
+        assert enc._nr["cnt"].sum() > 0      # the sums were gathered
 
 
 @pytest.mark.parametrize("kw", [

@@ -129,13 +129,14 @@ def recon_collector(enc):
     return lambda: [got[i] for i in sorted(got)]
 
 
-def golden_encoders(name, tmpdir=None):
+def golden_encoders(name, tmpdir=None, setup=None):
     """(port encoder, port stream, recons, JAX encoder, JAX stream,
     frames) of a golden case; fails when the committed entry is not the
     JAX package's. Both encoders count their VBV re-encodes. tmpdir
     takes the case's fixture files (testclip.golden_params); each package
     writes its own (the pass-1 or analysis-save encode of a case runs on
-    the package whose stream it feeds)."""
+    the package whose stream it feeds). setup, when given, is called with
+    the port's encoder before it encodes (to attach spies)."""
     from x265_tpu.api import params as JP
     from x265_tpu.api.encoder import Encoder as JEncoder
     from x265_tpu_torch.api import params as TP
@@ -147,6 +148,8 @@ def golden_encoders(name, tmpdir=None):
         return TEncoder(p, device="cpu")
     enc = port(testclip.golden_params(name, TP, tmpdir, encoder=port))
     recons = recon_collector(enc)
+    if setup is not None:
+        setup(enc)
     stream, qp_maps = testclip.golden_stream(enc, name, frames)
     jenc = count_reencodes(JEncoder(testclip.golden_params(
         name, JP, tmpdir, encoder=JEncoder)))

@@ -3,7 +3,7 @@
 all-intra path) of the PyTorch/CUDA port spends its time.
 
     python3 tools/torch_profile_frame.py
-        [--config ultrafast|filtered|live|medium|slow|lossless|main10]
+        [--config ultrafast|filtered|live|medium|slow|lossless|main10|slices]
         [--frames N] [--out trace.json]
 
 Needs a CUDA device. Encodes a seeded clip in one of the configurations
@@ -12,15 +12,18 @@ filtered fast + zerolatency with its brightness ramp; the live medium +
 zerolatency under CRF 23 and a 6000 kbps VBV buffer, on the scene-cut
 clip with the cut at frame 4, so the last frame is a P frame of the new
 scene; x265's default medium at 4000 kbps ABR, bench.py's config 3, on
-its clip_crowd1080; the slow preset under the same rate control; at
+its clip_crowd1080; the slow preset under the same rate control; config
+3 in four slices a picture with transform skip (slices: SAO's second pass
+recomputes every TB, as transform skip demands, in place of replaying
+the first pass's levels); at
 1280x720 bench.py's config 1, all-intra lossless on its pan; at
 3840x2160 BASELINE config 4, the slow preset at Main10 with scaling
 lists and the HDR10/HDR10+ metadata on the crowd clip lifted to 10
 bits), lets the
 first frames warm everything up, then traces with torch.profiler the
-LAST P frame or, for medium, slow and main10, the second mini-GOP: the
-flush_step call that codes one P anchor and the B pictures before it
-(frames default 6, and 11 for medium, slow and main10: the I picture and
+LAST P frame or, for medium, slow, main10 and slices, the second
+mini-GOP: the flush_step call that codes one P anchor and the B pictures
+before it (frames default 6, and 11 for those four: the I picture and
 ten
 queued pictures, two or more mini-GOPs); for lossless, one chunk of the
 pipelined path (Encoder.encode of 8 frames, after another encoder's
@@ -58,7 +61,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config",
                     choices=("ultrafast", "filtered", "live", "medium",
-                             "slow", "lossless", "main10"),
+                             "slow", "lossless", "main10", "slices"),
                     default="ultrafast")
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--out", default=None)
@@ -66,7 +69,7 @@ def main():
     card = chip_smoke.smi()
     W, H = chip_smoke.W, chip_smoke.H
     n = args.frames or {"medium": 11, "slow": 11, "main10": 11,
-                        "lossless": 8}.get(args.config, 6)
+                        "slices": 11, "lossless": 8}.get(args.config, 6)
     tmp = tempfile.TemporaryDirectory()          # the HDR10+ metadata
     if args.config == "filtered":
         frames = chip_smoke.make_ramp_clip(W, H, n, seed=11,
@@ -76,10 +79,12 @@ def main():
         frames = chip_smoke.make_cut_clip(W, H, n, seed=11,
                                           cut=4)
         enc = Encoder(chip_smoke.live_params(W, H))
-    elif args.config in ("medium", "slow"):
+    elif args.config in ("medium", "slow", "slices"):
         frames = list(chip_smoke.clip_crowd1080(W, H, n, seed=40))
-        params = (chip_smoke.medium_params if args.config == "medium"
-                  else chip_smoke.slow_params)
+        params = {"medium": chip_smoke.medium_params,
+                  "slow": chip_smoke.slow_params,
+                  "slices": chip_smoke.steered_params(
+                      {"slices": "4", "tskip": "1"})}[args.config]
         enc = Encoder(params(W, H))
     elif args.config == "main10":
         W, H = chip_smoke.W4K, chip_smoke.H4K
@@ -98,7 +103,7 @@ def main():
         enc = Encoder(chip_smoke.slice_params(W, H))
     if args.config == "lossless":
         step = lambda: enc.encode(frames)  # noqa: E731
-    elif args.config in ("medium", "slow", "main10"):
+    elif args.config in ("medium", "slow", "main10", "slices"):
         enc.headers()
         # the I picture codes at once, the rest queue (b-adapt's window is
         # rc-lookahead frames); the first mini-GOP warms up the B path

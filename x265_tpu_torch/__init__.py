@@ -12,7 +12,8 @@ beside it, so every counterpart is found by name:
     models/    whole-frame batched tensor graphs (plain PyTorch)
     engine/    motion search, mode decision, DPB planes, rate control
     io/        Y4M reader/writer, dither, the ladder's scaler, ReconPlay
-    utils/     device choice, upload cache, profiling, state conversion
+    utils/     device choice, upload cache, profiling, state conversion,
+               test clips, the assertion mode (checks.py)
     native/    C++ CABAC slice writer, built with g++ at first use
 
 Everything is eager PyTorch on an explicit device. Entry points take
@@ -24,7 +25,9 @@ at ``ref`` 4) with or without ``zerolatency``: CQP/CRF/ABR with VBV, the
 lookahead, B frames, the loop filters, AQ, weighted prediction, rd 3-4,
 RDOQ, lossless and all-intra, Main10 with scaling lists and HDR10, and
 the encodes steered from outside (two-pass, zones, qpfile, ROI maps,
-analysis save/load) with the ABR ladder. ``Encoder`` raises
+analysis save/load) with the ABR ladder, and the stream structure
+(WPP, multi-slice pictures, transform skip, noise reduction, frame-dup,
+the histogram scene cut, intra refresh). ``Encoder`` raises
 ``NotImplementedError`` for every option outside those slices.
 """
 

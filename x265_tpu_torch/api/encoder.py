@@ -5,7 +5,7 @@ Scope of the port so far: IDR/CRA, P and B pictures — mini-GOPs of up to
 `bframes` B pictures between two anchors, fixed (b-adapt 0) or placed by
 the lowres slice-type search (b-adapt 2), with the B-pyramid's referenced
 middle B and open-GOP CRAs whose queued pictures become RASL leading
-pictures — single slice per picture, Annex-B output, under CQP, CRF or
+pictures — Annex-B output, under CQP, CRF or
 ABR with VBV, with the lookahead (scenecut, cuTree), the in-loop filters
 (deblock, SAO), adaptive quantization, weighted prediction (P anchors)
 and the rd 3 decisions (rd 4 is the same path), RDOQ with psy-RDOQ, the
@@ -27,10 +27,19 @@ stats file at close(), --pass 2 plans from it), --zones, --qpfile
 (forced keyframes and QPs), ROI maps (set_ctu_info), analysis save/load
 (--analysis-save/--analysis-load, --scale-factor 2,
 set/get_analysis_data: a loaded picture skips its own analysis).
-Everything else raises NotImplementedError at construction.
+Stream structure and live robustness: WPP substreams with their entry
+points (--wpp), multi-slice pictures as even CTU-row bands (--slices),
+transform skip (--tskip), DCT-domain noise reduction (--nr-intra,
+--nr-inter), dropped duplicates signalled by pic_struct (--frame-dup),
+the luma-histogram scene cut (--hist-scenecut) and the intra-refresh
+column sweep with its recovery point (--intra-refresh). Everything else
+(12-bit, more than 4 references) raises NotImplementedError at
+construction.
 """
 from __future__ import annotations
 
+import copy
+import os
 from typing import Optional
 
 import numpy as np
@@ -153,12 +162,6 @@ def _check_supported(p) -> None:
     """Raise NotImplementedError, naming the option, for everything this
     port does not encode yet — never silently encode something else."""
     bad = []
-    for name in ("tskip", "wpp", "hist_scenecut", "frame_dup",
-                 "intra_refresh", "nr_intra", "nr_inter"):
-        if getattr(p, name, 0):
-            bad.append(name)
-    if p.slices > 1:
-        bad.append("slices > 1")
     if p.ref > 4:
         # the native writer codes ref_idx against at most 4 references
         # a list while the slice header announces them all: the JAX
@@ -230,7 +233,8 @@ class Encoder:
             # the spec's default matrices (sps_infer_scaling_list;
             # scalinglist.cpp:417 setDefaultScalingList)
             scaling_list_enabled=bool(p.scaling_lists),
-            frame_field_info=False,
+            # --frame-dup signals dropped duplicates via pic_struct
+            frame_field_info=p.frame_dup,
         )
         # HDR10 / colour description (x265 Encoder::configure vui wiring)
         from x265_tpu_torch.api.params import (
@@ -279,7 +283,7 @@ class Encoder:
             cb_qp_offset=p.cb_qp_offset,
             cr_qp_offset=p.cr_qp_offset,
             transquant_bypass_enabled=p.lossless,
-            transform_skip_enabled=False,
+            transform_skip_enabled=p.tskip,
             cu_qp_delta_enabled=bool((p.aq_mode > 0 or p.cu_tree)
                                      and not p.lossless),
             diff_cu_qp_delta_depth=0,          # QG == CTB
@@ -290,7 +294,7 @@ class Encoder:
             beta_offset_div2=p.deblock_beta_offset,
             tc_offset_div2=p.deblock_tc_offset,
             loop_filter_across_slices=True,
-            entropy_coding_sync_enabled=False,
+            entropy_coding_sync_enabled=bool(p.wpp),
         )
         self.poc = 0                 # POC of the next display-order frame
         self.frame_count = 0         # display-order intake counter
@@ -311,9 +315,20 @@ class Encoder:
         self._last_sao = None        # SaoParams of the most recent picture
         self._last_weights = None    # (luma, chroma) weights of the last P
         self._scenecut_frames = set()
+        # --frame-dup: display-index -> pic_struct (7 doubling, 8
+        # tripling) carried by that picture's pic_timing SEI; _emitted
+        # tracks which display pictures already left the encoder (their
+        # SEIs can no longer be amended)
         self._pic_struct = {}
         self._emitted = set()
-        # display index of each queued POC
+        self._dup_prev = None        # luma of the previous input (frame-dup)
+        self._hist_prev = None       # its luma histogram (hist-scenecut)
+        # --intra-refresh: the next column to force intra, and the
+        # recovery_point SEI count owed to the next P access unit
+        self._ir_col = 0
+        self._ir_recovery = None
+        # display index of each queued POC (diverges from _gop_base + poc
+        # once --frame-dup drops inputs)
         self._input_idx = {}
         # HDR10+ dynamic metadata (--dhdr10-info): per-display-frame ST
         # 2094-40 JSON entries -> one prefix SEI per AU (x265 dynamicHDR10)
@@ -333,6 +348,11 @@ class Encoder:
                       "intent only — RPUs are passed through unmodified")
         self.anchor = None           # (poc, (y, cb, cr)) last anchor recon
         self._colmv = {}             # poc -> ColCtx (TMVP source fields)
+        # DCT-domain noise reduction accumulators (frameencoder.cpp:2098)
+        self._nr = ({"sum": np.zeros((16, 1024), np.uint64),
+                     "cnt": np.zeros(16, np.uint64)}
+                    if (p.nr_intra or p.nr_inter) and not p.lossless
+                    else None)
         self.anchors = []            # retained anchors, nearest first
         # queued (poc, frame, cost, lookahead record, lowres plane)
         self.pending = []
@@ -462,6 +482,24 @@ class Encoder:
         is_idr = (self.frame_count == 0 or
                   (p.keyint > 0 and self.frames_since_idr >= p.keyint))
         qpf_entry = self._qpfile.get(self.frame_count)
+        # --frame-dup (encoder.cpp:1602 analog): a picture whose luma
+        # PSNR against the previous input reaches dup-threshold is
+        # dropped, and the previous picture's pic_timing SEI signals
+        # frame doubling (7) / tripling (8) so presentation timing is
+        # unchanged. Only possible while the previous picture is still
+        # queued (its SEIs are not yet written).
+        if (p.frame_dup and not is_idr and qpf_entry is None
+                and self._dup_prev is not None):
+            prev_idx = self.frame_count - 1
+            ps_now = self._pic_struct.get(prev_idx, 0)
+            if prev_idx not in self._emitted and ps_now != 8:
+                from x265_tpu_torch.utils.metrics import psnr
+                if (psnr(np.asarray(y), self._dup_prev, p.bit_depth)
+                        >= p.dup_threshold):
+                    self._pic_struct[prev_idx] = 8 if ps_now == 7 else 7
+                    self.frame_count += 1
+                    return b""
+        self._dup_prev = np.asarray(y).copy() if p.frame_dup else None
         qp_forced = None
         force_closed = False          # 'I' = IDR even with --open-gop
         if qpf_entry is not None:
@@ -491,6 +529,16 @@ class Encoder:
                 pcost >= (1.0 - sc_thresh) * icost):
             is_idr = True
             self._scenecut_frames.add(self.frame_count)
+        if (not is_idr and p.hist_scenecut and
+                self.frames_since_idr >= min_ki and
+                self._hist_scenecut(frame[0])):
+            # histogram-based detector (x265 --hist-scenecut,
+            # encoder.cpp:1602 computeHistogramSAD): normalized luma
+            # histogram distance against the previous frame
+            is_idr = True
+            self._scenecut_frames.add(self.frame_count)
+        self._hist_prev = (self._luma_hist(frame[0])
+                           if p.hist_scenecut else None)
         self.frame_count += 1
         if is_idr:
             if (p.open_gop and not force_closed and self.ipp
@@ -536,6 +584,11 @@ class Encoder:
         depth = self.bframes + 1
         if self.bframes and p.b_adapt and p.rc_lookahead > depth:
             depth = min(p.rc_lookahead, 32)
+        if p.frame_dup:
+            # one extra queued picture so a duplicate's predecessor is
+            # still unemitted when the duplicate arrives (its pic_timing
+            # SEI can then signal the doubling)
+            depth += 1
         if len(self.pending) >= depth:
             out += self._emit_minigop()
         return out
@@ -974,7 +1027,24 @@ class Encoder:
         """Display (input) index of a POC — tracks --frame-dup drops."""
         return self._input_idx.get(poc, self._gop_base + poc)
 
+    @staticmethod
+    def _luma_hist(y) -> np.ndarray:
+        """256-bin histogram of y >> 2 at every bit depth, as the
+        reference bins it (a 10-bit picture's bins reach 255, an 8-bit
+        picture's stop at 63)."""
+        return np.bincount((np.asarray(y) >> 2).reshape(-1).astype(np.int64),
+                           minlength=256).astype(np.float64)
 
+    def _hist_scenecut(self, y) -> bool:
+        """Normalized luma-histogram SAD vs the previous frame (x265
+        --hist-scenecut, encoder.cpp computeHistogramSAD)."""
+        h = self._luma_hist(y)
+        prev = self._hist_prev
+        if prev is None:
+            return False
+        sad = np.abs(h - prev).sum() / max(1.0, h.sum())
+        thr = 0.35 * (self.param.hist_threshold / 0.03)
+        return sad > thr     # --hist-threshold (rescaled to this metric)
 
     # -- encoder query/control API (x265.h:2108-2186 analogs) --
 
@@ -1119,7 +1189,20 @@ class Encoder:
             out += annexb([make_nal(nal_type, hdr.data() + data)])
         return out
 
-
+    @staticmethod
+    def _set_wpp_entry_points(sh, data, raw_sizes) -> None:
+        """entry_point_offset values for a WPP payload: per-substream
+        sizes measured in the escaped (EBSP) domain (spec 7.4.7.1; x265
+        serializeSubstreams analog, frameencoder.cpp:1033). raw_sizes
+        are the pre-escape substream byte sizes; the escaper's zero-run
+        state carries across boundaries exactly as make_nal will."""
+        from x265_tpu_torch.hevc.bitstream import escaped_sizes
+        parts = []
+        pos = 0
+        for s in raw_sizes[:-1]:
+            parts.append(data[pos:pos + s])
+            pos += s
+        sh.entry_point_offsets = escaped_sizes(parts)
 
     def _intra_decisions(self, y) -> FrameDecisions:
         from x265_tpu_torch.models.intra_frame import decide_intra_frame_tpu
@@ -1178,7 +1261,13 @@ class Encoder:
             (pocs_l0, ()), poc, SLICE_P)
         self._record_colmv(decisions, (pocs_l0, ()), poc)
         self._last_recon = recon
-        au = (self._aud(SLICE_P) + self._hrd_sei(SLICE_P, poc)
+        rp = b""
+        if self._ir_recovery is not None:
+            # --intra-refresh: a refresh cycle started in this picture
+            from x265_tpu_torch.hevc.sei import recovery_point_sei
+            rp = annexb([recovery_point_sei(self._ir_recovery)])
+            self._ir_recovery = None
+        au = (self._aud(SLICE_P) + self._hrd_sei(SLICE_P, poc) + rp
               + self._dhdr10_sei(poc, SLICE_P)
               + self._assemble_slices(slice_data, sh, NAL_TRAIL_R)
               + self._hash_sei(recon) + self._dovi_rpu(poc))
@@ -1186,6 +1275,27 @@ class Encoder:
                           len(au) * 8, poc, decisions)
         return au
 
+    def _nr_offsets(self) -> np.ndarray:
+        """Adaptive-deadzone offsets from the running residual sums
+        (x265 FrameEncoder::noiseReductionUpdate, frameencoder.cpp:2098).
+        Host numpy on the uint64 accumulators, as the reference computes
+        them; a category whose count passes its block limit has its sums
+        halved in place first."""
+        p = self.param
+        maxblk = (1 << 18, 1 << 16, 1 << 14, 1 << 12)
+        off = np.zeros((16, 1024), np.uint16)
+        for cat in range(16):
+            tr = cat & 3
+            nc = 1 << ((tr + 2) * 2)
+            if self._nr["cnt"][cat] > maxblk[tr]:
+                self._nr["sum"][cat] >>= 1
+                self._nr["cnt"][cat] >>= 1
+            strength = p.nr_intra if cat < 8 else p.nr_inter
+            sc = int(strength) * int(self._nr["cnt"][cat])
+            ss = self._nr["sum"][cat][:nc]
+            off[cat, :nc] = np.minimum((sc + ss // 2) // (ss + 1), 65535)
+            off[cat, 0] = 0              # DC is never denoised
+        return off
 
     def _encode_b_frame(self, frame, poc, anchor0, anchor1, qp=None,
                         as_ref=False, extra_keep=(),
@@ -1387,6 +1497,13 @@ class Encoder:
         if self._awriter is not None:
             self._awriter.put(decisions)
         sao_on = bool(p.sao and not p.lossless)
+        # DCT-domain noise reduction: this picture's offsets from the sums
+        # so far, and fresh sums for the native walks to fill
+        nr_arrs = None
+        if self._nr is not None:
+            nr_arrs = (self._nr_offsets(),
+                       np.zeros((16, 1024), np.uint32),
+                       np.zeros(16, np.uint32))
         wp_native = None
         if (sh.luma_weights_l0 is not None
                 or sh.chroma_weights_l0 is not None):
@@ -1405,7 +1522,9 @@ class Encoder:
             [self._pad_ref(planes, pad) for planes in lst]
             for lst in refs)   # up to 4 refs per list
         pre = None
-        if slice_type != SLICE_I:
+        # under noise reduction the native walk quantizes every TB itself
+        # (the deadzone offsets apply there), so no device residual runs
+        if slice_type != SLICE_I and nr_arrs is None:
             from x265_tpu_torch.models.inter_residual import build_inter_pre
             with scope("tpu_residual"):
                 pre = build_inter_pre(
@@ -1427,14 +1546,18 @@ class Encoder:
                 and bool((decisions.inter8.astype(bool)
                           & (pre["has8"] == 0)).any())))
         if need_host_refs:
-            refs_native = tuple(
-                [self._host_padded_ref(r, pad) for r in lst]
-                for lst in refs_padded)
+            with scope("host_refs"):
+                refs_native = tuple(
+                    [self._host_padded_ref(r, pad) for r in lst]
+                    for lst in refs_padded)
         else:
             zp = self._zero_padded_ref(pad)
             refs_native = tuple([zp] * len(lst) for lst in refs_padded)
+        # "pre": the precomputed TBs the next walk emits; "nr_reset": the
+        # next walk quantizes, so the NR sums start again from zero
+        state = {"pre": pre, "nr_reset": True}
 
-        def run_native(pre_arg, sp=None, collect_arg=None):
+        def run_native_range(sp, begin, count, collect_arg=None):
             return native.encode_slice_px(
                 np.asarray(y), np.asarray(cb), np.asarray(cr),
                 decisions.cu_log2_map, decisions.luma_mode8,
@@ -1448,12 +1571,82 @@ class Encoder:
                 sao_chroma=sp is not None, qp_map=decisions.qp_map,
                 bit_depth=p.bit_depth, ref8=decisions.ref8,
                 rdoq_level=p.rdoq_level, weights=wp_native, col=col,
-                col_from_l0=int(sh.collocated_from_l0),
-                pre=pre_arg, collect=collect_arg,
+                col_from_l0=int(sh.collocated_from_l0), nr=nr_arrs,
+                pre=state["pre"], ctb_begin=begin, ctb_count=count,
+                collect=collect_arg,
                 scaling_lists=bool(p.scaling_lists),
+                tskip=p.tskip, wpp=bool(p.wpp),
                 psy_rdoq_fx=(int(round(p.psy_rdoq * 256))
                              if p.rdoq_level >= 2 else 0),
                 tu_inter_depth=p.tu_inter_depth)
+
+        wc = p.pic_width_in_ctbs
+        hc = p.pic_height_in_ctbs
+        n_slices = max(1, min(p.slices, hc))
+
+        def run_native(sp=None, collect_arg=None):
+            if nr_arrs is not None and state["nr_reset"]:
+                # fresh sums once per quantizing pass — NOT per band
+                # (multi-slice would keep only the last band's DCT
+                # statistics), and NOT in the emit-only replay pass
+                # (no quantization happens there)
+                nr_arrs[1][:] = 0
+                nr_arrs[2][:] = 0
+            if n_slices == 1:
+                r = run_native_range(sp, 0, -1, collect_arg)
+                if p.wpp:
+                    # raw per-row substream sizes (entry points are set
+                    # from the FINAL cabac pass's payload)
+                    state["ss_sizes"] = r[4]
+                    r = r[:4]
+                return r
+            # multi-slice picture (x265 --slices, frameencoder.cpp:820-876):
+            # even CTU-row bands, each an independent slice segment with
+            # its own CABAC state
+            bounds = [round(i * hc / n_slices) for i in range(n_slices + 1)]
+            jobs = [(bounds[i], bounds[i + 1]) for i in range(n_slices)
+                    if bounds[i] != bounds[i + 1]]
+            # the band calls are independent, release the GIL and write
+            # their own output buffers, so they run on a thread pool; the
+            # noise-reduction sums accumulate unsynchronized in the
+            # writer, so that configuration stays serial
+            nthreads = min(len(jobs), os.cpu_count() or 1)
+            if nthreads > 1 and nr_arrs is None:
+                from concurrent.futures import ThreadPoolExecutor
+                with ThreadPoolExecutor(nthreads) as ex:
+                    results = list(ex.map(
+                        lambda j: run_native_range(
+                            sp, j[0] * wc, (j[1] - j[0]) * wc, collect_arg),
+                        jobs))
+            else:
+                results = [run_native_range(sp, r0 * wc, (r1 - r0) * wc,
+                                            collect_arg)
+                           for (r0, r1) in jobs]
+            ctu = p.ctu_size
+            payload = []
+            rec = cbf = qpa = None
+            for (r0, r1), (data_i, rec_i, cbf_i, qp_i) in zip(jobs, results):
+                sh_i = copy.copy(sh)
+                sh_i.first_slice_in_pic = r0 == 0
+                sh_i.segment_address = r0 * wc
+                payload.append((sh_i, data_i))
+                if rec is None:
+                    rec = [np.array(pl) for pl in rec_i]
+                    cbf = np.array(cbf_i)
+                    qpa = np.array(qp_i)
+                    continue
+                # stitch the band's rows: luma by pels, chroma by half
+                # pels, the cbf and QP planes by 4x4 units
+                y0p = r0 * ctu
+                y1p = min(p.height, r1 * ctu)
+                rec[0][y0p:y1p] = rec_i[0][y0p:y1p]
+                c0, c1 = y0p >> 1, (y1p + 1) >> 1
+                rec[1][c0:c1] = rec_i[1][c0:c1]
+                rec[2][c0:c1] = rec_i[2][c0:c1]
+                q0, q1 = y0p >> 2, (y1p + 3) >> 2
+                cbf[q0:q1] = cbf_i[q0:q1]
+                qpa[q0:q1] = qp_i[q0:q1]
+            return payload, tuple(rec), cbf, qpa
 
         # with SAO on, the first walk is collect-only (CABAC disabled):
         # it gathers every TB's levels/cbf + the recon, the loop filter
@@ -1461,7 +1654,11 @@ class Encoder:
         # them emit-only (x265 derives SAO from stats without
         # re-encoding, sao.cpp:1225)
         collect_bufs = None
-        if sao_on:
+        # --tskip: the collected level planes cannot carry the per-TB
+        # transform_skip_flag, so the emit-only replay would drop it;
+        # the second pass recomputes in full instead (decisions are
+        # deterministic, so the streams still match)
+        if sao_on and not p.tskip:
             h8n, w8n = p.height >> 3, p.width >> 3
             collect_bufs = {
                 "lvl_y": np.zeros((p.height, p.width), np.int16),
@@ -1475,7 +1672,7 @@ class Encoder:
                              else np.zeros((h8n, w8n), np.uint8))}
         with scope("finalize"):
             slice_data, recon, cbf4, qp_actual = run_native(
-                pre, collect_arg=collect_bufs)
+                collect_arg=collect_bufs)
         # the emit-only replay pass needs the PRE-loop-filter recon
         # (native pre-fills its working planes with it)
         pre_lf_recon = recon
@@ -1507,12 +1704,16 @@ class Encoder:
                                            device=self.device)
             self._last_sao = sp
             sh.sao_luma = sh.sao_chroma = True
-            replay = {**collect_bufs,
-                      "rec_y": pre_lf_recon[0].astype(np.int16),
-                      "rec_cb": pre_lf_recon[1].astype(np.int16),
-                      "rec_cr": pre_lf_recon[2].astype(np.int16)}
+            if collect_bufs is not None:
+                # emit-only replay: no quantization, the sums stay
+                state["pre"] = {
+                    **collect_bufs,
+                    "rec_y": pre_lf_recon[0].astype(np.int16),
+                    "rec_cb": pre_lf_recon[1].astype(np.int16),
+                    "rec_cr": pre_lf_recon[2].astype(np.int16)}
+                state["nr_reset"] = False
             with scope("finalize"):
-                slice_data = run_native(replay, sp)[0]
+                slice_data = run_native(sp)[0]
             with scope("loopfilter"):
                 if keep_dev:
                     from x265_tpu_torch.models.loopfilter import (
@@ -1528,6 +1729,11 @@ class Encoder:
             recon = out_lf
             if keep_dev:
                 recon = FramePlanes(dev=recon, bd=p.bit_depth)
+        if nr_arrs is not None:
+            self._nr["sum"] += nr_arrs[1]
+            self._nr["cnt"] += nr_arrs[2]
+        if p.wpp and state.get("ss_sizes"):
+            self._set_wpp_entry_points(sh, slice_data, state["ss_sizes"])
         if not isinstance(recon, FramePlanes):
             # host planes (no device filter ran): one upload, then the
             # search and MC layouts are derived and cached on the device
@@ -2020,11 +2226,34 @@ class Encoder:
             with scope("rd_promote"):
                 self._merge_cu32(dec, satd16, qpv, rd_ctx)
                 self._merge_cu64(dec, satd16, qpv, rd_ctx)
+        self._apply_intra_refresh(dec)
         return dec
 
-
-
-
+    def _apply_intra_refresh(self, dec) -> None:
+        """Periodic intra refresh (x265 --intra-refresh /
+        x265_encoder_intra_refresh, x265.h:2108): a CTU column per P
+        frame is forced intra, sweeping the frame every pic-width-in-CTUs
+        frames — packet-loss recovery without IDR bitrate spikes. Runs
+        after the RD passes: the forced CUs keep the analysis's intra
+        modes."""
+        p = self.param
+        if not p.intra_refresh or dec.inter8 is None:
+            return
+        ncols = p.pic_width_in_ctbs
+        col = self._ir_col % ncols
+        self._ir_col = col + 1
+        if col == 0:
+            # refresh cycle starts: recovery point after ncols pictures
+            self._ir_recovery = ncols - 1
+        x0 = col * p.ctu_size
+        x1 = min(p.width, x0 + p.ctu_size)
+        dec.inter8[:, x0 >> 3:x1 >> 3] = False
+        # a CU forced intra cannot stay 64x64: the intra transform tree
+        # is TU==CU (max TB 32, ctu_writer._transform_tree_leaf), so
+        # demote promoted 64-CUs in the refresh column to four 32s (the
+        # column is whole CTUs wide, so the demotion never splits a CU)
+        colmap = dec.cu_log2_map[:, x0 >> 3:x1 >> 3]
+        colmap[colmap == 6] = 5
 
     def _b_decisions(self, y, ref0_y, ref1_y, qp=None, frame=None,
                      ref_tuples=None) -> FrameDecisions:

@@ -658,7 +658,8 @@ def _parse_vui(br: BitReader, sps: SPS) -> None:
             sps.matrix_coeffs = br.read(8)
     if br.read_flag():                    # chroma_loc
         sps.chroma_loc = br.read_ue(); br.read_ue()
-    br.read_flag(); br.read_flag(); br.read_flag()
+    br.read_flag(); br.read_flag()        # neutral chroma, field_seq
+    sps.frame_field_info = bool(br.read_flag())
     if br.read_flag():                    # default display window
         br.read_ue(); br.read_ue(); br.read_ue(); br.read_ue()
     if br.read_flag():                    # timing info

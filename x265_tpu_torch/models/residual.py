@@ -386,7 +386,13 @@ def tq_chain(resi, qp, scan_sel, n: int, dst: bool, is_intra: bool,
 
     resi [N,n,n] int32; qp [N] (already plane-adjusted Qp'); scan_sel [N]
     scan index for SBH. Returns (levels int32 [N,n,n], rres int32 [N,n,n],
-    cbf bool [N]).
+    cbf bool [N]). With X265TPU_CHECKIFY=1 the chain's invariants are
+    checked (utils/checks.py) and a violated one raises.
     """
+    from x265_tpu_torch.utils import checks
+    if checks.enabled():
+        return checks.checked_tq_chain(resi, qp, scan_sel, n, dst,
+                                       is_intra, bd, sdh, do_rdoq,
+                                       lossless, scaling, consts, psy_fx)
     return _tq_chain(resi, qp, scan_sel, n, dst, is_intra, bd, sdh,
                      do_rdoq, lossless, scaling, consts, psy_fx)

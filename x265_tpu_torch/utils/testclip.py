@@ -81,6 +81,43 @@ def make_cut_clip(w, h, n, seed, cut):
     return frames
 
 
+def make_screen_clip(w, h, n, seed):
+    """Screen content, where transform skip wins 4x4 TBs: one-pel lines
+    every 8 rows and 16 columns, flat boxes, a block of seeded random
+    "text" and chroma with the same sharp edges; the picture scrolls 3
+    pels a frame and the text block is new in every frame."""
+    rng = np.random.default_rng(seed)
+    base = np.full((h, w), 40, np.uint8)
+    base[::8, :] = 250
+    base[:, ::16] = 10
+    for _ in range(4):
+        y0, x0 = rng.integers(0, h - 16), rng.integers(0, w - 32)
+        base[y0:y0 + 10, x0:x0 + 30] = rng.integers(60, 200)
+    frames = []
+    for i in range(n):
+        y = np.roll(base, i * 3, axis=1).copy()
+        ty, tx = h // 2, w // 4
+        y[ty:ty + 10, tx:tx + 30] = rng.integers(0, 255, (10, 30))
+        cb = np.roll(base, i, axis=0)[::2, ::2].copy()
+        frames.append((y, cb, np.full((h // 2, w // 2), 130, np.uint8)))
+    return frames
+
+
+def make_dup_cut_clip(w, h, n, seed, dup, cut):
+    """make_cut_clip with two changes for --frame-dup and --hist-scenecut:
+    frame `dup` repeats frame dup-1 exactly (a duplicate to drop), and
+    from frame `cut` on the second scene is shown at half its contrast
+    and darker (y // 2 + 16), so that the luma histogram moves at the cut
+    and nowhere else."""
+    frames = make_cut_clip(w, h, n, seed, cut)
+    for i in range(cut, n):
+        y = (frames[i][0] // 2 + 16).astype(np.uint8)
+        frames[i] = (y, (y[::2, ::2] // 2 + 64).astype(np.uint8),
+                     (255 - y[::2, ::2] // 2).astype(np.uint8))
+    frames[dup] = tuple(pl.copy() for pl in frames[dup - 1])
+    return frames
+
+
 def lift10(frames, seed):
     """8-bit frames lifted to 10 bits (Main10): every sample times four
     plus two seeded low bits, uint16, so that the low bits carry noise
@@ -176,6 +213,47 @@ def stream_hdr10(stream):
             lums.append(cur)
             cur = None
     return sps, first, lums
+
+
+def stream_structure(stream):
+    """What a stream signals picture by picture, in stream order: a dict
+    per access unit with its NAL type and slice type, its slice segments
+    as (segment_address, number of entry points), the pic_struct of its
+    pic_timing SEI (None: no SEI or no frame_field_info) and the
+    recovery_poc_cnt of its recovery point SEI (None: none)."""
+    from x265_tpu_torch.hevc.bitstream import (BitReader, split_annexb,
+                                               strip_emulation_prevention)
+    from x265_tpu_torch.hevc.headers import (parse_pps, parse_slice_header,
+                                             parse_sps)
+    from x265_tpu_torch.hevc.sei import (SEI_PIC_TIMING, SEI_RECOVERY_POINT,
+                                         parse_sei)
+    sps = pps = None
+    pics, seis = [], {}
+    for nal in split_annexb(stream):
+        t = (nal[0] >> 1) & 0x3F
+        body = strip_emulation_prevention(nal[2:])
+        if t == 33:
+            sps = parse_sps(body)
+        elif t == 34:
+            pps = parse_pps(body)
+        elif t == 39:
+            for pt, pl in parse_sei(body):
+                seis[pt] = pl
+        elif t < 32:
+            sh, _ = parse_slice_header(body, t, sps, pps)
+            if sh.first_slice_in_pic:
+                ps = seis.get(SEI_PIC_TIMING)
+                rp = seis.get(SEI_RECOVERY_POINT)
+                pics.append({
+                    "nal": t, "slice_type": sh.slice_type, "slices": [],
+                    "pic_struct": (ps[0] >> 4 if ps is not None
+                                   and sps.frame_field_info else None),
+                    "recovery": (BitReader(rp).read_se()
+                                 if rp is not None else None)})
+                seis = {}
+            pics[-1]["slices"].append((sh.segment_address,
+                                       len(sh.entry_point_offsets or ())))
+    return pics
 
 
 # ---- bench.py's 1080p and 720p clips -------------------------------------
@@ -378,6 +456,34 @@ GOLDEN_CASES = {
     # pictures is coded (b-adapt 2 places shorter runs on this clip)
     "slower_crf": ("slower", None, {"crf": "28", "ref": "4",
                                     "b-adapt": "0"}, "make_clip", 16),
+    # stream structure and live robustness: WPP substreams with the
+    # intra-refresh column sweep and its recovery point on the live
+    # encode; multi-slice pictures (CTU-row bands; 32x32 CTUs give the
+    # picture the 4 rows that 3 bands need) with B frames and SAO;
+    # transform skip (SAO's second pass recomputes); noise reduction
+    # across two bands, its sums carried from picture to picture; WPP on
+    # the pipelined all-intra lossless path; a dropped duplicate and a
+    # luma-histogram cut (the lookahead's scenecut off, so the histogram
+    # decides)
+    "medium_zerolatency_wpp_ir": (
+        "medium", "zerolatency", {"crf": "28", "wpp": "1",
+                                  "intra-refresh": "1"},
+        "make_cut_clip", 18),
+    "medium_slices3": ("medium", None, {"crf": "28", "slices": "3",
+                                        "ctu": "32"}, "make_clip", 19),
+    "medium_tskip": ("medium", None, {"crf": "28", "tskip": "1"},
+                     "make_screen_clip", 20),
+    "medium_nr_slices2": ("medium", None, {"crf": "28", "nr-intra": "200",
+                                           "nr-inter": "500",
+                                           "slices": "2"},
+                          "make_clip", 21),
+    "ultrafast_lossless_wpp": (
+        "ultrafast", None, {"keyint": "1", "lossless": "1", "wpp": "1"},
+        "make_clip", 22),
+    "medium_zerolatency_dup_hist": (
+        "medium", "zerolatency", {"crf": "28", "frame-dup": "1",
+                                  "hist-scenecut": "1", "scenecut": "0"},
+        "make_dup_cut_clip", 23),
 }
 GOLDEN_SIZE = (192, 128, 5)          # width, height, frames
 GOLDEN_CUT = 3                       # the scene cut of make_cut_clip cases
@@ -389,7 +495,15 @@ GOLDEN_FRAMES = {"fast_crf": (11, None), "medium_crf_cut": (11, 7),
                  "medium_twopass": (11, None),
                  "medium_qpfile_zones": (11, None),
                  "medium_analysis_load_sf2": (11, None),
-                 "slower_crf": (10, None)}
+                 "slower_crf": (10, None),
+                 "medium_slices3": (11, None), "medium_tskip": (11, None),
+                 "medium_nr_slices2": (11, None),
+                 "medium_zerolatency_dup_hist": (7, 4)}
+GOLDEN_DUP = 2                       # the duplicate of make_dup_cut_clip
+# cases of their own size: 120 lines are 7.5 rows of 16, so the bottom
+# 8 lines are coded as 8x8 CUs, whose 4x4 chroma TBs transform skip can
+# take (the analysis decides 16x16 blocks elsewhere)
+GOLDEN_SIZES = {"medium_tskip": (192, 120)}
 # the qpfile of medium_qpfile_zones (display index, type, QP): a B
 # picture's QP, a forced keyframe (a CRA under open GOP), an IDR that
 # closes the GOP, and a QP on a picture whose P type is not forced
@@ -406,14 +520,18 @@ GOLDEN_LADDER = {"ladder_192x128": (192, 128, 150),
 # cases whose stream is Encoder.encode's (the all-intra pipelined path),
 # not headers + encode_frame per picture + flush
 GOLDEN_PIPELINED = ("ultrafast_lossless_allintra", "medium_allintra_crf",
-                    "main10_lossless_allintra")
+                    "main10_lossless_allintra", "ultrafast_lossless_wpp")
 
 
 def golden_clip(name):
     w, h, n = GOLDEN_SIZE
+    w, h = GOLDEN_SIZES.get(name, (w, h))
     n, cut = GOLDEN_FRAMES.get(name, (n, GOLDEN_CUT))
     maker = {"make_clip": make_clip, "make_ramp_clip": make_ramp_clip,
-             "make_cut_clip": lambda *a: make_cut_clip(*a, cut=cut)}
+             "make_screen_clip": make_screen_clip,
+             "make_cut_clip": lambda *a: make_cut_clip(*a, cut=cut),
+             "make_dup_cut_clip": lambda *a: make_dup_cut_clip(
+                 *a, dup=GOLDEN_DUP, cut=cut)}
     seed = GOLDEN_CASES[name][4]
     frames = maker[GOLDEN_CASES[name][3]](w, h, n, seed)
     if GOLDEN_CASES[name][2].get("output-depth") == "10":
@@ -433,7 +551,7 @@ def golden_params(name, params_module, tmpdir=None, encoder=None):
     import os
     preset, tune, opts = GOLDEN_CASES[name][:3]
 
-    def build(opts, size=GOLDEN_SIZE[:2]):
+    def build(opts, size=GOLDEN_SIZES.get(name, GOLDEN_SIZE[:2])):
         p = params_module.param_default_preset(preset, tune)
         for k, v in opts.items():
             params_module.param_parse(p, k, v)
