@@ -29,7 +29,15 @@ transform skip, noise reduction, frame-dup with the histogram scene cut
 and intra refresh (decoded by the port's decoder and by libde265 where
 the system has it), the assertion mode (X265TPU_CHECKIFY=1) on the card,
 and at 1080p the live encode with the robustness options and config 3 in
-four slices with transform skip and noise reduction —
+four slices with transform skip and noise reduction; then the JAX
+package's reference switches (the numpy intra analysis, the Python
+oracle writer with its NxN CUs, the native walk quantizing every TB: small
+encodes at 416x240, and config 3 at 1080p without the device residual,
+which must give encode_1080p_medium's stream), the standalone motion
+API (engine/me.motion_decide at merange 16 and 57 with its bundle
+functions) and the batched intra prediction at 1080p, and BASELINE
+config 5: an ABR ladder from 3840x2160 to 2160p/1080p/720p in one
+process and across two processes sharing the card (the same streams) —
 and checks that each went through every kernel of its path. Every kernel is held on 8-bit and on 10-bit samples. One JSON line per phase; any failure ends the
 run with a non-zero exit code and no result line.
 """
@@ -1069,7 +1077,6 @@ def kernel_phase():
         return cur, ref, mvc, n, e1, e2
 
     for name, h, w, S, R, kw in (
-            ("S=16 R=16 1088x1920", 1088, W, 16, 16, {}),
             ("S=16 R=24 1088x1920", 1088, W, 16, 24, {}),
             ("S=8 R=3", 64, 104, 8, 3, {}),
             ("single block", 16, 16, 16, 7, {}),
@@ -1192,6 +1199,30 @@ def kernel_phase():
         ops=3 * n * n * h * w + 2 * n * n * nb)
     del cur, ref
 
+    # the standalone motion API's dense search (engine.me.motion_decide at
+    # merange 16, phase motion_api_1080p): the 1088x1920 picture at S=16,
+    # R=16 (n = 33) against the reference edge-padded by R
+    h, w, S, R = 1088, W, 16, 16
+    cur, ref, mvc, n, _e1, e2 = sweep_case("motion_decide 1088x1920 R=16",
+                                           h, w, S, R)
+    e10 = sweep_case("motion_decide 1088x1920 R=16, 10-bit samples", h, w,
+                     S, R, maxv=1023)[5]
+    nb = (h // S) * (w // S)
+    rows["sad_sweep_argmin"]["motion_decide_r16"] = dict(
+        shape=f"cur[{h},{w}] ref_pad[{h + 2 * R},{w + 2 * R}] i16 S=16 "
+              f"R=16 mvcost[{n * n}] f32",
+        max_abs_err=e2, max_abs_err_10bit=e10,
+        ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R),
+                   10),
+        cold_l2_ms=time_cold_ms(
+            lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R), 5),
+        plain_ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin_plain(
+            cur, ref, mvc, S, R), 2),
+        diffs=n * n * h * w,
+        bytes=(cur.numel() + ref.numel()) * 2 + n * n * 4 + nb * 8,
+        ops=3 * n * n * h * w + 2 * n * n * nb)
+    del cur, ref
+
     # BASELINE config 4's dense search at 2160p on 10-bit planes (S=16,
     # R=57). Each CTA takes the byte path when every sample it stages is
     # below 256 (dark PQ regions) and the int16 path otherwise: held and
@@ -1269,7 +1300,17 @@ OFF_PATH = {"encode_1080p": LOW_LATENCY_OFF_PATH,
             # --frame-dup makes zerolatency's queue two deep, so the live
             # robust path codes B pictures too (ROADMAP Queue 3)
             "encode_1080p_live_robust": ("sad_sweep",),
-            "encode_1080p_medium_slices": ("sad_sweep",)}
+            "encode_1080p_medium_slices": ("sad_sweep",),
+            # the reference switches: the numpy analysis still searches
+            # motion on the card, the Python writer still runs the
+            # device's RD passes; config 3 without the device residual
+            # keeps the RD passes' gathers; the ladder is config 3's
+            "reference_switches": ("sad_sweep",),
+            "encode_1080p_medium_cpu_residual": ("sad_sweep",),
+            "ladder_2160p_2proc": ("sad_sweep",),
+            # the motion API runs no RD pass and no residual
+            "motion_api_1080p": ("sad_sweep", "mc_gather_interp",
+                                 "tile_gather")}
 # the kernels of the motion search, which an encode that loads its
 # decisions must not launch
 MOTION_KERNELS = ("tile_gather_planes", "tile_gather_planes_satd",
@@ -1279,10 +1320,14 @@ MOTION_KERNELS = ("tile_gather_planes", "tile_gather_planes_satd",
 # the extra shapes a kernel is held and timed at, beside its main row
 SHAPES_ON_PATH = ("lookahead", "rd_adopt_luma", "rd_adopt_chroma",
                   "rd_promote64", "bi_residual", "bi_satd", "slicetype",
-                  "dense", "rd_adopt_luma_2160p_main10", "dense_2160p_main10")
+                  "dense", "rd_adopt_luma_2160p_main10", "dense_2160p_main10",
+                  "motion_decide_r16")
 # the path whose dense-search launches each dense shape reports
 DENSE_PATH = {"dense": "encode_1080p_slow",
-              "dense_2160p_main10": "encode_2160p_main10_hdr10"}
+              "dense_2160p_main10": "encode_2160p_main10_hdr10",
+              "motion_decide_r16": "motion_api_1080p"}
+# the main paths whose every integer search is the dense S=16 R=57 sweep
+DENSE_R57_PATHS = ("encode_1080p_slow", "encode_2160p_main10_hdr10")
 
 
 def bounds(r, cal):
@@ -1474,13 +1519,21 @@ def int_stage_launches(sink):
         me._int_stage = orig
 
 
-def plain_first_minigop(params_fn, frames, size):
+def switched(enc, attrs):
+    """The encoder with the given Encoder attributes (the reference
+    switches: use_tpu_analysis, use_native, use_tpu_residual) set."""
+    for k, v in (attrs or {}).items():
+        setattr(enc, k, v)
+    return enc
+
+
+def plain_first_minigop(params_fn, frames, size, attrs=None):
     """The plain versions' stream up to the first mini-GOP that holds a B
     picture: headers, every frame through encode_frame (the I picture
     codes at once, the rest wait in b-adapt's window, which holds the
     whole clip), then flush_step until a B picture is coded. A shorter
     clip would place other mini-GOPs."""
-    enc = Encoder(params_fn(*size))
+    enc = switched(Encoder(params_fn(*size)), attrs)
     if min(enc.param.rc_lookahead, 32) < len(frames):
         fail("the first mini-GOP check needs the whole clip in b-adapt's "
              "window")
@@ -1493,29 +1546,64 @@ def plain_first_minigop(params_fn, frames, size):
     return stream, len(enc.frame_stats)
 
 
-# fps and stage seconds of each main path of this run (main_path fills it)
+# fps and stage seconds of each main path of this run, and its stream
+# (main_path fills them)
 PATH_NUMBERS = {}
+PATH_STREAMS = {}
+
+
+def plain_check(phase, params_fn, frames, size, attrs, stream, plain,
+                prefix):
+    """main_path's frames again with the plain versions forced on the
+    card: the same stream over the whole clip (plain="whole"), up to the
+    first mini-GOP ("first_minigop") or over the first `prefix` frames
+    ("prefix"). Returns the pictures compared and the seconds."""
+    plain_frames = len(frames) if plain != "prefix" else prefix
+    t0 = time.time()
+    with plain_versions():
+        cuda_mc.reset_launches()
+        if plain == "first_minigop":
+            plain_stream, plain_frames = plain_first_minigop(
+                params_fn, frames, size, attrs)
+        else:
+            plain_stream = switched(Encoder(params_fn(*size)), attrs).encode(
+                frames[:plain_frames])
+        if any(cuda_mc.launches.values()):
+            fail(f"{phase}: the plain-version run launched a kernel")
+    t_plain = time.time() - t0
+    if plain == "whole":
+        if stream != plain_stream:
+            fail(f"{phase}: kernel stream != plain-version stream over the "
+                 f"whole clip ({len(stream)} vs {len(plain_stream)} bytes)")
+    elif not stream.startswith(plain_stream):
+        fail(f"{phase}: kernel stream != plain-version stream over the "
+             f"first {plain_frames} pictures")
+    return plain_frames, t_plain
 
 
 def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
               plain="prefix", size=(W, H), check=None, setup=None,
-              prefix=3):
+              prefix=3, attrs=None):
     """One main path: the frames through Encoder.encode with the launch
     counts set to 0 just before and read just after; then the frames
     again with the plain versions, which must give the same bytes: the
     first 3 frames (plain="prefix", a prefix of the stream) or, for a
     path with B frames, whose GOPs a shorter clip changes, the whole clip
     ("whole") or the pictures up to the first mini-GOP ("first_minigop");
-    prefix: the number of frames of "prefix".
+    prefix: the number of frames of "prefix"; plain=None runs no plain
+    versions (for a path whose stream a check holds equal to another
+    main path's, itself held against them).
     types_want: the frame types in encode order, or None for the B-frame
     checks of check_b_structure. size: (width, height); check: a function
     of (encoder, stream) whose dict joins the phase's line (it calls fail
     itself); setup: a function called with the encoder before it encodes
-    (to attach the spies a check reads). Returns the launch counts and the
-    launches of the integer search; the fps and stage seconds go into
-    PATH_NUMBERS."""
+    (to attach the spies a check reads); attrs: Encoder attributes (the
+    reference switches) set on the kernels' encoder and on the plain
+    versions' alike. Returns the launch counts and the launches of the
+    integer search; the fps and stage seconds go into PATH_NUMBERS, the
+    stream into PATH_STREAMS."""
     devcache.clear()
-    enc = Encoder(params_fn(*size))
+    enc = switched(Encoder(params_fn(*size)), attrs)
     if setup is not None:
         setup(enc)
     by_kind = attribute_launches(enc)
@@ -1569,38 +1657,23 @@ def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
             str(1 << lg): float((cl == lg).mean()) for lg in (3, 4, 5, 6)}
     if check is not None:
         extra.update(check(enc, stream))
-    if phase in DENSE_PATH.values():
+    if phase in DENSE_R57_PATHS:
         if int_stage["shapes"] != {(16, 57)}:
             fail(f"{phase}: the integer search ran at {int_stage['shapes']}"
                  ", not only the dense S=16 R=57 sweep")
         extra["dense_launches"] = int_stage["launches"]
     # the same frames with the plain versions forced on the card
     devcache.clear()
-    plain_frames = len(frames) if plain != "prefix" else prefix
-    t0 = time.time()
-    with plain_versions():
-        cuda_mc.reset_launches()
-        if plain == "first_minigop":
-            plain_stream, plain_frames = plain_first_minigop(params_fn,
-                                                             frames, size)
-        else:
-            plain_stream = Encoder(params_fn(*size)).encode(
-                frames[:plain_frames])
-        if any(cuda_mc.launches.values()):
-            fail(f"{phase}: the plain-version run launched a kernel")
-    t_plain = time.time() - t0
-    if plain == "whole":
-        if stream != plain_stream:
-            fail(f"{phase}: kernel stream != plain-version stream over the "
-                 f"whole clip ({len(stream)} vs {len(plain_stream)} bytes)")
-    elif not stream.startswith(plain_stream):
-        fail(f"{phase}: kernel stream != plain-version stream over the "
-             f"first {plain_frames} pictures")
+    plain_frames, t_plain = 0, 0.0
+    if plain:
+        plain_frames, t_plain = plain_check(phase, params_fn, frames, size,
+                                            attrs, stream, plain, prefix)
     per_type = {f"launches_per_{t.lower()}_frame": {
         k: v / types.count(t) for k, v in by_kind[t].items()}
         for t in "PB" if types.count(t)}
     per_type["launches_outside_pictures"] = {
         k: v - sum(by_kind[t][k] for t in "PIB") for k, v in launches.items()}
+    PATH_STREAMS[phase] = stream
     PATH_NUMBERS[phase] = {"fps": len(frames) / t_enc, "seconds": t_enc,
                            "frames": len(frames), "pictures": len(types),
                            "stage_seconds": stages}
@@ -1608,7 +1681,7 @@ def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
          bytes=len(stream), seconds=t_enc, fps=len(frames) / t_enc,
          stage_seconds=stages, launches=launches, **per_type,
          inter_cu_share_last_frame=inter_pct,
-         kernel_stream_equals_plain_stream=True,
+         kernel_stream_equals_plain_stream=bool(plain),
          plain_pictures=plain_frames, plain_seconds=t_plain,
          bits=[s["bits"] for s in enc.frame_stats], **extra)
     return launches, int_stage["launches"]
@@ -2285,6 +2358,416 @@ def slices_spy(offsets, recons):
     return setup
 
 
+# ---- the eleventh slice: the reference switches, the standalone motion
+# API, the batched intra prediction and BASELINE config 5's ladder across
+# two processes
+
+# the renditions each of the two ladder processes owns (round-robin)
+LADDER_PROCS = 2
+
+
+def switch_encode(what, params, frames, attrs, decode=True):
+    """Encode with the given reference switches (Encoder attributes),
+    time it and, with decode, decode it back to the encoder's recon (the
+    port's decoder, and libde265 where the system has it). Returns the
+    encoder, the stream, the seconds and libde265's verdict."""
+    devcache.clear()
+    enc = switched(Encoder(params), attrs)
+    recons = {}
+    enc.recon_sink = lambda idx, planes: recons.__setitem__(idx, planes)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    stream = enc.encode(frames)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    de265 = None
+    if decode:
+        _ts, de265 = decode_checked(what, stream, recons, len(frames))
+    return enc, stream, secs, de265
+
+
+def medium_cqp_params(w, h, **opts):
+    """x265's medium at CQP 30 with fixed mini-GOPs of one B picture, no
+    scene cut, no AQ or cuTree (the setting of the JAX package's writer
+    tests, tests/test_tskip.py and test_scaling_lists.py), with more
+    options through param_parse."""
+    p = param_default_preset("medium")
+    for k, v in (("qp", "30"), ("bframes", "1"), ("b-adapt", "0"),
+                 ("scenecut", "0"), ("aq-mode", "0"), ("cutree", "0"),
+                 ("rdoq-level", "2"), *opts.items()):
+        param_parse(p, k, v)
+    p.width, p.height = w, h
+    return p
+
+
+def nxn_stream(w, h, frames):
+    """The NxN oracle encode (tests/test_torch_e2e_oracle.py): ultrafast
+    all-intra at QP 30 through the Python writer, every other 8x8 CU
+    PART_NxN with varied per-PB modes, driven through headers +
+    encode_frame + flush so that the patched _intra_decisions is reached.
+    Returns the stream, the recons by display index and the seconds."""
+    p = param_default_preset("ultrafast")
+    p.width, p.height = w, h
+    for k, v in (("qp", "30"), ("keyint", "1")):
+        param_parse(p, k, v)
+    enc = switched(Encoder(p), {"use_native": False})
+    orig = enc._intra_decisions
+
+    def patched(y):
+        dec = orig(y)
+        dec.cu_log2_map[:] = 3
+        h8, w8 = dec.cu_log2_map.shape
+        dec.nxn8 = (np.indices((h8, w8)).sum(0) % 2 == 0)
+        m4 = np.repeat(np.repeat(dec.luma_mode8, 2, 0), 2, 1)
+        m4[::2, 1::2] = (m4[::2, 1::2] + 7) % 35
+        m4[1::2, ::2] = (m4[1::2, ::2] + 19) % 35
+        dec.luma_mode4 = m4
+        dec.chroma_mode8 = None
+        return dec
+    enc._intra_decisions = patched
+    recons = {}
+    enc.recon_sink = lambda idx, planes: recons.__setitem__(idx, planes)
+    t0 = time.time()
+    stream = enc.headers()
+    for f in frames:
+        stream += enc.encode_frame(*f)
+    stream += enc.flush()
+    return stream, recons, time.time() - t0
+
+
+def reference_switches_phase(card):
+    """The JAX package's reference switches at 416x240 on the card, each
+    stream decoded back to the encoder's recon: the numpy intra analysis
+    (--no-tpu) on the live encode and on config 3; the Python oracle
+    writer on ultrafast + zerolatency and on fast + zerolatency (deblock,
+    SAO); the NxN oracle stream (counted by the decoder); and where the
+    JAX package's tests hold the Python writer equal to the native one
+    (the three-way of tests/test_cu64.py, tests/test_tskip.py,
+    tests/test_scaling_lists.py, with the native walk quantizing every
+    TB), the two streams equal here too. Returns the launch counts of the
+    phase's encodes."""
+    phase = "reference_switches"
+    w, h = 416, 240
+    cuda_mc.reset_launches()
+    out = {}
+    for name, params, frames, attrs in (
+            ("notpu_live", live_params(w, h), make_clip(w, h, 2, seed=3),
+             {"use_tpu_analysis": False}),
+            ("notpu_config3", medium_params(w, h),
+             list(clip_crowd1080(w, h, 5, seed=40)),
+             {"use_tpu_analysis": False}),
+            ("py_ultrafast_zerolatency", slice_params(w, h),
+             make_clip(w, h, 3, seed=3), {"use_native": False}),
+            ("py_fast_zerolatency", filtered_params(w, h),
+             make_ramp_clip(w, h, 3, seed=3), {"use_native": False})):
+        enc, stream, secs, de265 = switch_encode(
+            f"{phase} {name}", params, frames, attrs)
+        out[name] = {"frames": len(frames), "bytes": len(stream),
+                     "seconds_per_picture": secs / len(frames),
+                     "types": "".join(s["type"] for s in enc.frame_stats),
+                     "decoded_equals_recon": True, "de265": de265}
+        if name == "py_fast_zerolatency":
+            sp = enc._last_sao
+            sao_ctus = int(((sp.type_y != 0) | (sp.type_c != 0)).sum())
+            if not (sao_ctus and enc.param.deblock):
+                fail(f"{phase} {name}: no SAO parameters or no deblock")
+            out[name]["sao_ctus_last_frame"] = sao_ctus
+    # the writers held equal (not decoded: the streams above are): native
+    # walk (every TB its own), device residual, Python writer
+    for name, params, frames in (
+            ("three_way_medium", medium_cqp_params(w, h),
+             make_clip(w, h, 3, seed=5)),
+            ("tskip", medium_cqp_params(w, h, tskip="1"),
+             testclip.make_screen_clip(w, h, 3, seed=3)),
+            ("scaling_lists", medium_cqp_params(w, h, **{
+                "scaling-list": "default"}), make_clip(w, h, 3, seed=11))):
+        streams, secs = {}, {}
+        for tag, attrs in (("native", {"use_tpu_residual": False}),
+                           ("device", {}),
+                           ("python", {"use_native": False,
+                                       "use_tpu_residual": False})):
+            if tag == "device" and name != "three_way_medium":
+                continue
+            enc, streams[tag], secs[tag], _ = switch_encode(
+                f"{phase} {name} {tag}", params, frames, attrs,
+                decode=False)
+        if len(set(streams.values())) != 1:
+            fail(f"{phase} {name}: the writers' streams differ "
+                 f"({ {k: len(v) for k, v in streams.items()} } bytes)")
+        cl = enc._last_analysis.cu_log2_map
+        out[name] = {"frames": len(frames), "bytes": len(streams["native"]),
+                     "streams_equal": sorted(streams),
+                     "python_seconds_per_picture":
+                         secs["python"] / len(frames),
+                     "native_seconds_per_picture":
+                         secs["native"] / len(frames),
+                     "cu64_share_last_frame": float((cl == 6).mean())}
+    # PART_NxN intra CUs: only the Python writer codes them
+    frames = make_clip(w, h, 2, seed=7)
+    stream, recons, secs = nxn_stream(w, h, frames)
+    dec = HEVCDecoder(collect_stats=True)
+    pics = dec.decode(stream)
+    nxn = sum(1 for _p, _t, ev in dec.pic_stats for e in ev
+              if e[2] == "intra_nxn")
+    if nxn == 0 or len(pics) != len(frames):
+        fail(f"{phase} nxn: {nxn} PART_NxN CUs in {len(pics)} pictures")
+    _ts, de265 = decode_checked(f"{phase} nxn", stream, recons, len(frames))
+    out["nxn"] = {"frames": len(frames), "bytes": len(stream),
+                  "nxn_cus": nxn, "seconds_per_picture": secs / len(frames),
+                  "decoded_equals_recon": True, "de265": de265}
+    launches = dict(cuda_mc.launches)
+    missing = [k for k, v in launches.items()
+               if v == 0 and k not in OFF_PATH[phase]]
+    if missing:
+        fail(f"{phase}: kernels never launched: {missing}")
+    emit(phase, card=card, size=f"{w}x{h}", launches=launches, **out)
+    return launches
+
+
+def cpu_residual_check(enc, stream):
+    """Config 3 with every TB quantized by the native walk: no device
+    residual ran, and the stream is encode_1080p_medium's."""
+    want = PATH_STREAMS["encode_1080p_medium"]
+    if stream != want:
+        fail(f"encode_1080p_medium_cpu_residual: stream ({len(stream)} "
+             f"bytes) != encode_1080p_medium's ({len(want)} bytes)")
+    if profiling.report().get("tpu_residual", {}).get("calls"):
+        fail("encode_1080p_medium_cpu_residual: the device residual ran")
+    return {"equals_encode_1080p_medium_stream": True}
+
+
+def motion_api_path(card):
+    """engine/me.py's standalone motion API at 1920x1080 on pictures 0-2
+    of config 3's clip: motion_decide of picture 1 against picture 0 at
+    merange 16 (the dense S=16, R=16 sweep on kernel 5's fused entry) and
+    57 (the half-size sweep, then kernel 5's window entry), subme 0 and
+    2 (kernel 3's fused gather + SATD); on the subme-2 bundles
+    refine_with_mvp, smooth_mv_field, eval_mvs and bi_cost against a
+    second bundle of picture 1 against picture 2 (kernel 3's blocks entry
+    twice, kernel 4). The same calls with the plain versions on the card
+    give the same mvs and costs exactly. Returns the launch counts and the
+    dense R=16 sweep's launches."""
+    phase = "motion_api_1080p"
+    frames = list(clip_crowd1080(W, H, 3, seed=40))
+    cur, ref0, ref1 = frames[1][0], frames[0][0], frames[2][0]
+
+    def run():
+        res, secs = {}, {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t = time.time()
+            res[name] = fn()
+            torch.cuda.synchronize()
+            secs[name] = time.time() - t
+        for R in (16, 57):
+            timed(f"R{R}_subme0", lambda: me.motion_decide(
+                cur, ref0, W, H, S=16, R=R, qp=32, subme=0))
+            timed(f"R{R}_subme2", lambda: me.motion_decide(
+                cur, ref0, W, H, S=16, R=R, qp=32, subme=2,
+                return_aux=True))
+        timed("R16_subme2_list1", lambda: me.motion_decide(
+            cur, ref1, W, H, S=16, R=16, qp=32, subme=2, return_aux=True))
+        mv, cost, aux = res["R16_subme2"]
+        mv1, _, aux1 = res["R16_subme2_list1"]
+        mvp, mvp1 = me.mv_field_median3(mv), me.mv_field_median3(mv1)
+        timed("refine_with_mvp", lambda: me.refine_with_mvp(aux, mv, mvp))
+        timed("smooth_mv_field", lambda: me.smooth_mv_field(
+            mv, cost, aux, aux["lam"]))
+        timed("eval_mvs", lambda: me.eval_mvs(aux, mv))
+        timed("bi_cost", lambda: me.bi_cost(mv, aux, mv1, aux1, mvp0=mvp,
+                                            mvp1=mvp1))
+        flat = {}
+        for k, v in res.items():
+            v = v if isinstance(v, tuple) else (v,)
+            flat[k] = [np.asarray(x) for x in v if not isinstance(x, dict)]
+        return flat, secs
+
+    devcache.clear()
+    dense = {"launches": 0, "shapes": set()}
+    orig_search = me._int_search
+
+    def counted(cur_t, ref_pad, mvcost, S, R):
+        before = cuda_mc.launches["sad_sweep_argmin"]
+        try:
+            return orig_search(cur_t, ref_pad, mvcost, S, R)
+        finally:
+            if (S, R) == (16, 16):
+                dense["launches"] += (cuda_mc.launches["sad_sweep_argmin"]
+                                      - before)
+            dense["shapes"].add((S, R))
+    me._int_search = counted
+    cuda_mc.reset_launches()
+    try:
+        got, secs = run()
+    finally:
+        me._int_search = orig_search
+    launches = dict(cuda_mc.launches)
+    missing = [k for k, v in launches.items()
+               if v == 0 and k not in OFF_PATH[phase]]
+    if missing:
+        fail(f"{phase}: kernels never launched: {missing}")
+    if dense["shapes"] != {(16, 16), (8, 29)}:
+        fail(f"{phase}: the integer searches ran at {dense['shapes']}")
+    with plain_versions():
+        cuda_mc.reset_launches()
+        t0 = time.time()
+        want, _ = run()
+        t_plain = time.time() - t0
+        if any(cuda_mc.launches.values()):
+            fail(f"{phase}: the plain-version run launched a kernel")
+    for k in got:
+        for a, b in zip(got[k], want[k]):
+            if a.shape != b.shape or not np.array_equal(a, b):
+                fail(f"{phase} {k}: the kernels' result != the plain "
+                     "versions'")
+    mv57 = got["R57_subme2"][0]
+    emit(phase, card=card, size=f"{W}x{H}", seconds=secs,
+         plain_seconds=t_plain, launches=launches,
+         dense_r16_launches=dense["launches"],
+         equals_plain="mvs and costs exact",
+         mv57_range=[int(mv57.min()), int(mv57.max())],
+         smoothed_blocks_changed=int(
+             (got["smooth_mv_field"][0] != got["R16_subme2"][0]).any(
+                 axis=-1).sum()))
+    return launches, dense["launches"]
+
+
+def intra_pred_phase(card):
+    """models/intra_pred.predict_intra_batch (plain PyTorch: the JAX
+    package reaches no Pallas kernel there) at a 1080p batch: 8160 blocks
+    of 16x16, every mode, luma and chroma, strong smoothing on and off,
+    some references unavailable; the card's prediction equals the CPU's
+    exactly. Times the card's call (inputs on the card) and the CPU's."""
+    from x265_tpu_torch.models.intra_pred import predict_intra_batch
+    phase = "intra_pred_1080p"
+    rng = np.random.default_rng(16)
+    nt, N = 16, (H // 16 + 1) * (W // 16)
+    R = 4 * nt + 1
+    refs = rng.integers(0, 256, (N, R)).astype(np.int32)
+    refs[::3] = 100 + np.arange(R) // 8
+    avail = np.ones((N, R), bool)
+    avail[::5, :R // 3] = False
+    avail[::7, R // 2:] = False
+    modes = (np.arange(N) % 35).astype(np.int32)
+    out = {}
+    dref, davail, dmodes = (to_dev(a) for a in (refs, avail, modes))
+    for luma in (True, False):
+        for strong in (False, True):
+            a = (nt, 8, luma, strong)
+            got = predict_intra_batch(dref, davail, dmodes, *a)
+            t0 = time.time()
+            want = predict_intra_batch(refs, avail, modes, *a,
+                                       device="cpu")
+            t_cpu = (time.time() - t0) * 1e3
+            if not torch.equal(got.cpu(), want):
+                fail(f"{phase}: the card's prediction != the CPU's "
+                     f"(luma={luma}, strong={strong})")
+            out[f"{'luma' if luma else 'chroma'}_strong{int(strong)}"] = {
+                "ms": time_ms(lambda: predict_intra_batch(
+                    dref, davail, dmodes, *a), 10),
+                "cpu_ms": t_cpu}
+    emit(phase, card=card, blocks=N, nt=nt, modes=35, max_abs_err=0,
+         **out)
+
+
+def ladder_2proc_path(card, n_frames):
+    """BASELINE config 5 (tools/torch_ladder_worker.py): n_frames of the
+    crowd clip at 3840x2160 into 3840x2160 at 12000 kbps, 1920x1080 at
+    4000 and 1280x720 at 2400, x265's medium under config 3's ABR. First
+    the three renditions one after another in this process (the launch
+    counts of the phase), then two worker processes on the one card
+    (torch.distributed, gloo: rank 0 the 4K and 720p renditions, rank 1
+    the 1080p one), started after this process has built every kernel;
+    every rendition's stream from the two equals this process's, and each
+    stream's headers and frame types are checked. Reports both walls
+    (each worker's from a common barrier to its last flush; the slower
+    one is the two-process wall), their ratio and every rendition's
+    seconds."""
+    import importlib.util
+    import socket
+    phase = "ladder_2160p_2proc"
+    spec = importlib.util.spec_from_file_location(
+        "torch_ladder_worker", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "torch_ladder_worker.py"))
+    worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(worker)
+    frames, size, rends = worker.ladder_spec("config5", n_frames)
+    devcache.clear()
+    cuda_mc.reset_launches()
+    one, secs1, wall1, lad = worker.encode_shard(frames, size, rends, 0, 1)
+    launches = dict(cuda_mc.launches)
+    del frames
+    missing = [k for k, v in launches.items()
+               if v == 0 and k not in OFF_PATH[phase]]
+    if missing:
+        fail(f"{phase}: kernels never launched: {missing}")
+    per = []
+    for i, (w, h, kbps) in enumerate(rends):
+        enc = lad.encoders[i]
+        if (enc.sps.width, enc.sps.height) != (w, h):
+            fail(f"{phase}: rendition {i} is {enc.sps.width}x"
+                 f"{enc.sps.height}")
+        # 8 frames: an I picture, P anchors and B pictures between them
+        # (fewer than check_b_structure demands of 11)
+        types = "".join(x["type"] for x in enc.frame_stats)
+        heads = [(nal[0] >> 1) & 0x3F for nal in split_annexb(one[i])[:3]]
+        if (heads != [32, 33, 34] or types[0] != "I" or "P" not in types
+                or "B" not in types
+                or len(first_slices(one[i])) != len(types)):
+            fail(f"{phase} {w}x{h}: headers {heads}, types {types}")
+        per.append({"size": f"{w}x{h}",
+                    **encode_numbers(enc, one[i], secs1[i], kbps)})
+    del lad
+    devcache.clear()
+    torch.cuda.empty_cache()
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, spec.origin, "--coordinator",
+             f"127.0.0.1:{port}", "--procs", str(LADDER_PROCS),
+             "--proc-id", str(r), "--out", out_dir, "--ladder", "config5",
+             "--frames", str(n_frames)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            for r in range(LADDER_PROCS)]
+        results = []
+        try:
+            for p in procs:
+                so, se = p.communicate(timeout=600)
+                if p.returncode != 0:
+                    fail(f"{phase}: worker exited {p.returncode}: "
+                         f"{se.decode(errors='replace')[-1500:]}")
+                results.append(json.loads(so.decode().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        t_spawn = time.time() - t0
+        for i in range(len(rends)):
+            with open(os.path.join(out_dir, f"r{i}.hevc"), "rb") as f:
+                two = f.read()
+            if two != one[i]:
+                fail(f"{phase}: rendition {per[i]['size']} from two "
+                     f"processes ({len(two)} bytes) != one process's "
+                     f"({len(one[i])} bytes)")
+    wall2 = max(r["wall_seconds"] for r in results)
+    emit(phase, card=card, source=f"{size[0]}x{size[1]}",
+         source_frames=n_frames, one_process_seconds=wall1,
+         two_process_seconds=wall2, two_over_one=wall2 / wall1,
+         two_process_spawn_to_exit_seconds=t_spawn,
+         streams_equal_across_processes=True, renditions=per,
+         processes=[{"rank": r["rank"], "wall_seconds": r["wall_seconds"],
+                     "renditions": r["renditions"],
+                     "launches": r["launches"]} for r in results],
+         launches=launches)
+    return launches
+
+
 def main():
     t_start = time.time()
     card = smi()
@@ -2362,12 +2845,16 @@ def main():
     small_steered_phases()
     # the stream-structure options, the checked encode and a bad QP
     small_structure_phases()
+    # the reference switches: the numpy analysis, the Python writer, the
+    # native walk's own quantization, the NxN oracle stream
+    switch_launches = reference_switches_phase(card)
 
     # ---- golden streams: the card against the JAX package's digests
     golden_phase()
 
     # ---- bench.py config 1: 720p all-intra lossless, decoded to the source
-    launches_by_path = {"encode_720p_lossless": lossless_path(card)}
+    launches_by_path = {"encode_720p_lossless": lossless_path(card),
+                        "reference_switches": switch_launches}
     dense_by_path = {}
 
     # ---- the main paths through Encoder.encode: at 1080p 8 frames each,
@@ -2395,6 +2882,20 @@ def main():
                  "first_minigop")
         launches_by_path[phase], dense_by_path[phase] = main_path(
             phase, params_fn, frames, card, types, stages, plain=plain)
+
+    # ---- config 3 with every TB quantized by the native walk
+    # (use_tpu_residual = False): encode_1080p_medium's stream, byte for
+    # byte; its fps and finalize seconds beside config 3's
+    launches_by_path["encode_1080p_medium_cpu_residual"], _ = main_path(
+        "encode_1080p_medium_cpu_residual", medium_params,
+        list(clip_crowd1080(W, H, 11, seed=40)), card, None,
+        ("slicetype", "lookahead", "motion", "rd_adopt", "rd_promote",
+         "loopfilter", "finalize"),
+        plain=None, check=cpu_residual_check,
+        attrs={"use_tpu_residual": False})
+    emit("switch_paths", card=card, **{
+        k: PATH_NUMBERS[k] for k in ("encode_1080p_medium",
+                                     "encode_1080p_medium_cpu_residual")})
 
     # ---- the stream-structure paths at 1080p: the live encode with the
     # robustness options (8 frames of the live clip, its picture 2 a copy
@@ -2447,6 +2948,17 @@ def main():
         card, frames)
     launches_by_path["ladder_1080p"] = ladder_path(card, frames)
     del frames
+
+    # ---- the standalone motion API and the batched intra prediction at
+    # 1080p, against the plain versions and the CPU
+    launches_by_path["motion_api_1080p"], dense_by_path[
+        "motion_api_1080p"] = motion_api_path(card)
+    intra_pred_phase(card)
+
+    # ---- BASELINE config 5: the ABR ladder at 2160p/1080p/720p in one
+    # process, then across two processes on the card
+    # (8 frames of the worker's 11: chip_smoke.py's time)
+    launches_by_path["ladder_2160p_2proc"] = ladder_2proc_path(card, 8)
 
     # ---- the kernels' table (launches: the main paths' runs together,
     # each path's own count beside it; the lossless path launches none).

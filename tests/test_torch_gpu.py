@@ -215,3 +215,73 @@ def test_checked_tq_chain_on_the_card(monkeypatch):
     again = tq_chain(resi.to(dev), qp.to(dev), sel.to(dev), *args)
     torch.cuda.synchronize()
     assert torch.equal(again[0].cpu(), want[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,subme", [(16, 0), (16, 2), (57, 0), (57, 2)])
+def test_motion_decide_on_the_card_equals_the_cpu(R, subme):
+    """The standalone motion API on the card (kernel 5's fused sweep or,
+    at R=57, its window entry after the half-size sweep; kernel 3's fused
+    gather + SATD in the subpel rounds) against the plain versions on the
+    CPU: mvs and costs exact; with return_aux also eval_mvs,
+    refine_with_mvp, smooth_mv_field and bi_cost."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from x265_tpu_torch.engine import me
+    rng = np.random.default_rng(R + subme)
+    h, w = 128, 192
+    big = rng.integers(0, 256, (h + 64, w + 64)).astype(np.float32)
+    for _ in range(2):
+        big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1)) / 3
+    ref = big[16:16 + h, 16:16 + w].astype(np.uint8)
+    cur = big[19:19 + h, 13:13 + w].astype(np.uint8)
+    kw = dict(S=16, R=R, qp=30, subme=subme)
+    before = dict(cuda_mc.launches)
+    got = me.motion_decide(cur, ref, w, h, device="cuda", **kw)
+    want = me.motion_decide(cur, ref, w, h, device="cpu", **kw)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+    entry = "sad_local_argmin" if R > 24 else "sad_sweep_argmin"
+    assert cuda_mc.launches[entry] > before[entry]
+    if subme == 0:
+        return
+    kw["return_aux"] = True
+    mv, cost, aux = me.motion_decide(cur, ref, w, h, device="cuda", **kw)
+    cmv, ccost, caux = me.motion_decide(cur, ref, w, h, device="cpu", **kw)
+    mv1, _, aux1 = me.motion_decide(cur, cur, w, h, device="cuda", **kw)
+    _, _, caux1 = me.motion_decide(cur, cur, w, h, device="cpu", **kw)
+    mvp = me.mv_field_median3(mv)
+    assert np.array_equal(me.eval_mvs(aux, mv), me.eval_mvs(caux, mv))
+    for a, b in zip(me.refine_with_mvp(aux, mv, mvp),
+                    me.refine_with_mvp(caux, mv, mvp)):
+        assert np.array_equal(a, b)
+    assert np.array_equal(me.smooth_mv_field(mv, cost, aux, aux["lam"]),
+                          me.smooth_mv_field(mv, cost, caux, caux["lam"]))
+    assert np.array_equal(me.bi_cost(mv, aux, mv1, aux1),
+                          me.bi_cost(mv, caux, mv1, caux1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nt", [4, 8, 16, 32])
+def test_predict_intra_batch_on_the_card_equals_the_cpu(nt):
+    """models/intra_pred.predict_intra_batch (plain PyTorch) on the card:
+    every mode, luma and chroma, strong smoothing on and off, 8 and 10
+    bits, partial availability; exact against the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from x265_tpu_torch.models.intra_pred import predict_intra_batch
+    rng = np.random.default_rng(nt)
+    R, N = 4 * nt + 1, 140
+    modes = np.tile(np.arange(35, dtype=np.int32), 4)
+    for bd in (8, 10):
+        refs = rng.integers(0, 1 << bd, (N, R)).astype(np.int32)
+        refs[::3] = (100 << (bd - 8)) + np.arange(R) // 8
+        avail = rng.random((N, R)) < 0.8
+        avail[::4] = True
+        for luma in (True, False):
+            for strong in (False, True):
+                a = (refs, avail, modes, nt, bd, luma, strong)
+                got = predict_intra_batch(*a, device="cuda")
+                assert got.is_cuda
+                assert torch.equal(got.cpu(),
+                                   predict_intra_batch(*a, device="cpu"))

@@ -17,7 +17,10 @@ _BAD = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|x265_tpu)(\.|\s|$)", re.M)
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    tools = os.path.join(ROOT, "tools")
+    out = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(tools, f) for f in os.listdir(tools)
+        if f.startswith("torch_") and f.endswith(".py")]
     for d, _dirs, files in os.walk(PKG):
         if os.path.basename(d) in ("build", "__pycache__"):
             continue
@@ -34,6 +37,29 @@ def test_sources_never_import_jax_or_the_jax_package():
         assert not _BAD.search(text), path
         assert "import_module(\"jax" not in text, path
         assert "__import__(\"jax" not in text, path
+
+
+def test_port_tools_are_scanned_and_the_worker_loads_neither():
+    """tools/torch_*.py are the port's own scripts: the source scan covers
+    them, and importing the ladder worker with every module it runs
+    (the ladder, the encoder, torch.distributed) loads neither jax nor
+    the JAX package."""
+    tools = {os.path.basename(p) for p in _sources()
+             if os.path.dirname(p) == os.path.join(ROOT, "tools")}
+    assert {"torch_ladder_worker.py", "torch_profile_frame.py",
+            "torch_sass_count.py"} <= tools
+    code = (
+        "import sys, runpy\n"
+        "g = runpy.run_path('tools/torch_ladder_worker.py', "
+        "run_name='worker')\n"
+        "import torch.distributed, x265_tpu_torch.api.ladder\n"
+        "g['ladder_spec']('golden', 1)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'x265_tpu')]\n"
+        "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr
 
 
 def test_importing_every_module_loads_neither():
@@ -322,6 +348,33 @@ def test_bframe_entry_points_default_to_cuda():
                  lambda: submit_intra_analysis_batch([y, y], 64, 64),
                  lambda: batched_pair_costs([(low, low)]),
                  lambda: slicetype_split(low, [low, low])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_reference_path_entry_points_default_to_cuda():
+    """The standalone motion API, the batched intra prediction from
+    numpy and the ladder worker's shard take device=None as CUDA and
+    raise before any work when there is no card."""
+    import importlib.util
+    import numpy as np
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from x265_tpu_torch.engine.me import motion_decide
+    from x265_tpu_torch.models.intra_pred import predict_intra_batch
+    spec = importlib.util.spec_from_file_location(
+        "torch_ladder_worker",
+        os.path.join(ROOT, "tools", "torch_ladder_worker.py"))
+    worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(worker)
+    y = np.zeros((64, 64), np.uint8)
+    refs = np.zeros((2, 17), np.int32)
+    for call in (lambda: motion_decide(y, y, 64, 64, R=8),
+                 lambda: predict_intra_batch(refs, refs > 0, [0, 1], 4, 8,
+                                             True, False),
+                 lambda: worker.encode_shard([], (64, 64),
+                                             [(64, 64, 100)], 0, 1)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 

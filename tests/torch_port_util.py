@@ -162,6 +162,31 @@ def golden_encoders(name, tmpdir=None, setup=None):
     return enc, stream, recons(), jenc, ref, frames
 
 
+def switch_streams(build, frames, variants, setup=None):
+    """Encoder.encode's stream of frames for each (package, switches) of
+    variants: the package "torch" (the port, on the CPU) or "jax";
+    build(params_module) makes the Param through that package's
+    api.params (the frame size comes from the frames); the switches are
+    Encoder attributes set after construction (use_native,
+    use_tpu_residual, use_tpu_analysis); setup(enc), when given, runs on
+    every encoder before it encodes."""
+    import importlib
+    out = []
+    h, w = np.shape(frames[0][0])
+    for pkg, switches in variants:
+        root = "x265_tpu_torch" if pkg == "torch" else "x265_tpu"
+        p = build(importlib.import_module(f"{root}.api.params"))
+        p.width, p.height = w, h
+        Encoder = importlib.import_module(f"{root}.api.encoder").Encoder
+        enc = Encoder(p, device="cpu") if pkg == "torch" else Encoder(p)
+        for k, v in switches.items():
+            setattr(enc, k, v)
+        if setup is not None:
+            setup(enc)
+        out.append(enc.encode(frames))
+    return out
+
+
 def golden_pair(name):
     """(port encoder, port stream, recons, JAX stream, frames) of a golden
     case; fails when the committed entry is not the JAX package's."""

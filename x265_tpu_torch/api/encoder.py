@@ -32,9 +32,12 @@ points (--wpp), multi-slice pictures as even CTU-row bands (--slices),
 transform skip (--tskip), DCT-domain noise reduction (--nr-intra,
 --nr-inter), dropped duplicates signalled by pic_struct (--frame-dup),
 the luma-histogram scene cut (--hist-scenecut) and the intra-refresh
-column sweep with its recovery point (--intra-refresh). Everything else
-(12-bit, more than 4 references) raises NotImplementedError at
-construction.
+column sweep with its recovery point (--intra-refresh). The JAX
+encoder's reference switches, attributes set after construction:
+use_tpu_analysis (False: the numpy intra analysis, the CLI's --no-tpu),
+use_native (False: the Python oracle writer) and use_tpu_residual
+(False: the native walk quantizes every TB). Everything else (12-bit,
+more than 4 references) raises NotImplementedError at construction.
 """
 from __future__ import annotations
 
@@ -362,6 +365,17 @@ class Encoder:
         # differential-test hook: False routes the deblock through the
         # numpy reference (hevc/deblock.py) instead of the device
         self.use_tpu_loopfilter = True
+        # the reference switches, read where the JAX package reads them:
+        # False runs the numpy intra analysis (engine.mode_decision; the
+        # CLI's --no-tpu), the Python writer (engine.ctu_writer, the
+        # oracle the native writer is held against), or the native
+        # walk's own quantization of every TB in place of the device's
+        # inter residual. The last two give the same stream (the device
+        # residual differs only under tu-inter-depth 2, as in the JAX
+        # package); the first decides intra CUs by another analysis
+        self.use_tpu_analysis = True
+        self.use_native = True
+        self.use_tpu_residual = True
         from x265_tpu_torch.engine.lookahead import Lookahead
         from x265_tpu_torch.engine.ratecontrol import RateControl
         self.rc = RateControl(p)
@@ -802,7 +816,8 @@ class Encoder:
         for it in sched:
             groups.setdefault((it[3][0], it[4][0]), []).append(it)
         for items in groups.values():
-            if len(items) >= 2 and self._areader is None:
+            if (len(items) >= 2 and self.use_tpu_analysis
+                    and self._areader is None):
                 self._precompute_b_batch(items, items[0][3][1],
                                          items[0][4][1])
         out += self._run_b_pipeline(
@@ -1205,12 +1220,18 @@ class Encoder:
         sh.entry_point_offsets = escaped_sizes(parts)
 
     def _intra_decisions(self, y) -> FrameDecisions:
-        from x265_tpu_torch.models.intra_frame import decide_intra_frame_tpu
         p = self.param
         cu_log2 = 4 if p.ctb_log2 >= 4 else p.ctb_log2
-        return decide_intra_frame_tpu(
-            np.asarray(y), p.width, p.height, cu_log2=cu_log2,
-            fast=p.fast_intra, psy=float(p.psy_rd), device=self.device)
+        if self.use_tpu_analysis:
+            from x265_tpu_torch.models.intra_frame import (
+                decide_intra_frame_tpu)
+            return decide_intra_frame_tpu(
+                np.asarray(y), p.width, p.height, cu_log2=cu_log2,
+                fast=p.fast_intra, psy=float(p.psy_rd), device=self.device)
+        from x265_tpu_torch.engine.mode_decision import decide_intra_frame
+        return decide_intra_frame(
+            np.asarray(y), p.width, p.height, p.ctb_log2, cu_log2=cu_log2,
+            strong_smoothing=p.intra_smoothing, bit_depth=p.bit_depth)
 
     def _encode_p_frame(self, frame, poc, anchors, qp=None) -> bytes:
         """anchors: retained reference anchors, nearest first (the L0
@@ -1517,14 +1538,21 @@ class Encoder:
                     wp[r, 2] = (1, e[1][0], e[1][1])
             wp_native = (wp, sh.luma_log2_weight_denom,
                          sh.chroma_log2_weight_denom)
+        if not self.use_native:
+            return self._run_py(frame, sh, decisions, refs, ref_poc, poc,
+                                col, nr_arrs, sao_on)
         pad = 80
         refs_padded = tuple(
             [self._pad_ref(planes, pad) for planes in lst]
             for lst in refs)   # up to 4 refs per list
         pre = None
         # under noise reduction the native walk quantizes every TB itself
-        # (the deadzone offsets apply there), so no device residual runs
-        if slice_type != SLICE_I and nr_arrs is None:
+        # (the deadzone offsets apply there), so no device residual runs;
+        # without use_tpu_residual it quantizes every TB too (the same
+        # bytes but under tu-inter-depth 2: test_torch_finalizer_split.py
+        # and test_torch_oracle_writer.py)
+        if (self.use_tpu_residual and slice_type != SLICE_I
+                and nr_arrs is None):
             from x265_tpu_torch.models.inter_residual import build_inter_pre
             with scope("tpu_residual"):
                 pre = build_inter_pre(
@@ -1740,6 +1768,62 @@ class Encoder:
             recon = FramePlanes(host=recon, bd=p.bit_depth,
                                 device=self.device)
         return slice_data, recon
+
+    def _run_py(self, frame, sh, decisions, refs, ref_poc, poc, col,
+                nr_arrs, sao_on):
+        """Slice data and loop-filtered recon through the Python writer
+        (engine.ctu_writer.FrameSyntaxWriter): the oracle the native
+        writer is held against, and the only writer that codes PART_NxN
+        intra CUs (FrameDecisions.nxn8). It quantizes every TB itself,
+        deblocks on the host, and under SAO codes the picture twice, the
+        second time with the parameters the first recon chose. It writes
+        one slice a picture whatever --slices says, as the JAX package's
+        run_py does; that stream decodes all the same.
+
+        The JAX package also falls back to this writer when the native
+        one returns None. The port's native writer raises instead: its
+        one failure, an intra CU above 32x32 (native/slice_writer.cpp),
+        fails this writer's assertion too, so a fallback would hide the
+        fault rather than encode the picture."""
+        from x265_tpu_torch.engine.ctu_writer import FrameSyntaxWriter
+        from x265_tpu_torch.hevc import sao as sao_mod
+        p = self.param
+        y, cb, cr = frame
+
+        def run_py(sp=None):
+            if nr_arrs is not None:
+                nr_arrs[1][:] = 0
+                nr_arrs[2][:] = 0
+            writer = FrameSyntaxWriter(self.sps, self.pps, sh, p.lossless,
+                                       refs=refs, ref_poc=ref_poc,
+                                       cur_poc=poc, col=col)
+            writer.nr = nr_arrs
+            writer.rdoq_level = 0 if p.lossless else p.rdoq_level
+            writer.psy_fx = (int(round(p.psy_rdoq * 256))
+                             if writer.rdoq_level >= 2 else 0)
+            data = writer.encode_slice_data(
+                np.asarray(y), np.asarray(cb), np.asarray(cr), decisions,
+                sao_params=sp)
+            if getattr(writer, "substream_parts", None):
+                self._set_wpp_entry_points(
+                    sh, data, [len(b) for b in writer.substream_parts])
+            writer.apply_loop_filters()
+            return data, (writer.y, writer.cb, writer.cr)
+
+        slice_data, recon = run_py()
+        if sao_on:
+            sp = sao_mod.analyze_frame((y, cb, cr), recon, p.ctb_log2,
+                                       sh.qp, p.bit_depth,
+                                       device=self.device)
+            self._last_sao = sp
+            sh.sao_luma = sh.sao_chroma = True
+            slice_data, _ = run_py(sp)
+            recon = sao_mod.apply_frame(recon, sp, p.ctb_log2, p.bit_depth)
+        if nr_arrs is not None:
+            self._nr["sum"] += nr_arrs[1]
+            self._nr["cnt"] += nr_arrs[2]
+        return slice_data, FramePlanes(host=recon, bd=p.bit_depth,
+                                       device=self.device)
 
     def _deblock_intra_recon(self, recon, decisions, qp, sao_src=None,
                              sync=True, keep_device=False):
@@ -2131,7 +2215,24 @@ class Encoder:
                 np.zeros((hc, wc), np.int16), np.zeros((hc, wc), np.int16)))
         return self._zero_ref[1]
 
+    def _intra_cost_grid(self, y, S=16):
+        """The device bank's per-SxS intra cost grid (host float32) of the
+        edge-padded luma: the intra side of the inter/intra choice when
+        the decisions come from the numpy analysis."""
+        import torch
+        from x265_tpu_torch.models.intra_frame import frame_intra_analysis
+        p = self.param
+        ph = -(-p.height // S) * S
+        pw = -(-p.width // S) * S
+        yp = np.pad(np.asarray(y, dtype=np.int32),
+                    ((0, ph - p.height), (0, pw - p.width)), mode="edge")
+        _, icost = frame_intra_analysis(
+            torch.from_numpy(yp).to(self.device), S=S)
+        return icost.cpu().numpy().reshape(ph // S, pw // S)
+
     def _intra_analysis_with_cost(self, y):
+        if not self.use_tpu_analysis:
+            return self._intra_decisions(y), self._intra_cost_grid(y)
         from x265_tpu_torch.models.intra_frame import (
             decide_intra_frame_tpu_with_cost)
         p = self.param

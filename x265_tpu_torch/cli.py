@@ -3,7 +3,7 @@
 Usage:
     python -m x265_tpu_torch.cli --input in.y4m --output out.hevc \
         --preset ultrafast --tune zerolatency --qp 30 --scenecut 0 \
-        [--frames N] [--device cpu]
+        [--frames N] [--device cpu] [--no-tpu]
     python -m x265_tpu_torch.cli --input in.y4m --output out.hevc \
         --preset fast --tune zerolatency --qp 30 --scenecut 0 \
         [--no-deblock] [--no-sao] [--aq-mode N] [--aq-strength X]
@@ -41,7 +41,9 @@ K/i: a keyframe that may be a CRA) and QPs by display index;
 --analysis-save writes every picture's decisions and --analysis-load
 codes with them instead of analysing (--scale-factor 2: saved at half
 the width and height); --recon and --recon-play receive the
-reconstructed pictures in display order. Every other long
+reconstructed pictures in display order. --no-tpu decides the intra
+CUs with the numpy analysis (engine/mode_decision.py) in place of the
+device's mode bank, as the JAX package's CLI does. Every other long
 option of x265 (--deblock, --sao, --aq-mode, --aq-strength, --weightp and
 their --no- forms among them) goes through param_parse. Runs on the
 CUDA device unless --device says otherwise. Options outside the ported
@@ -79,6 +81,8 @@ def main(argv=None) -> int:
                          "(x265 --recon-y4m-exe)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
+    ap.add_argument("--no-tpu", action="store_true",
+                    help="numpy intra analysis (the reference path)")
     ap.add_argument("--dither", action="store_true",
                     help="error-diffusion dither when reducing input depth")
     ap.add_argument("--csv", default=None, help="per-frame CSV log")
@@ -147,6 +151,8 @@ def main(argv=None) -> int:
 
     p.psnr_metrics = True          # the CLI reports PSNR/SSIM like x265
     enc = Encoder(p, device=args.device)
+    if args.no_tpu:
+        enc.use_tpu_analysis = False
 
     csv = open(args.csv, "w") if args.csv else None
     csv2 = csv and p.csv_log_level >= 2

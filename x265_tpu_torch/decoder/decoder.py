@@ -99,7 +99,8 @@ class SliceDecoder:
         # x265's csv-log-level-2 analysis surface (x265.h x265_frame_stats).
         # Each coded CU appends (slice_type, size, kind, total_bytes,
         # residual_bytes, any_cbf) where kind in
-        # {"skip","merge","amvp","intra"}; byte spans come from the CABAC
+        # {"skip","merge","amvp","intra","intra_nxn"} (intra_nxn: a
+        # PART_NxN intra CU, four luma prediction blocks); byte spans come from the CABAC
         # read position, so they are exact to within engine carry (~1 byte).
         self.stats = stats
         self.data = data
@@ -312,6 +313,8 @@ class SliceDecoder:
         part_nxn = False
         if log2_cb == sps.log2_min_cb:
             part_nxn = cab.decode_bin(CTX_OFF["part_mode"]) == 0
+        if part_nxn:
+            self._cu_kind = "intra_nxn"
 
         n_pbs = 4 if part_nxn else 1
         pb_size = size >> 1 if part_nxn else size

@@ -90,6 +90,10 @@ class Lookahead:
         self.last_low = None
         self.last_blocks = None
 
+    def frame_cost(self, y: np.ndarray, is_intra: bool) -> float:
+        """SATD-domain complexity of one frame (x265 m_currentSatd)."""
+        return self.frame_costs(y, is_intra)[0]
+
     def _src_dev(self, y):
         """The shared device upload of the source plane (one per frame
         across lookahead, analysis, motion search and residual)."""

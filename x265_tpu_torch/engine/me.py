@@ -235,6 +235,241 @@ def _bi_satd(cur_blocks, planes0, planes1, mv0, mv1, bxy, S, margin):
     return satd8_batched(cur_blocks, avg)
 
 
+# ---------------------------------------------------------------------------
+# The standalone motion API (one reference, host numpy in and out): the
+# JAX package's motion_decide and the bundle functions over its aux. The
+# encoder runs motion_fused below; these serve the --subme dial's tests and
+# any caller that searches one reference.
+# ---------------------------------------------------------------------------
+
+def _int_search(cur, ref_pad, mvcost, S, R):
+    """Integer full search. cur [H,W], ref_pad [H+2R, W+2R], mvcost
+    [(2R+1)^2] float32 -> (best_idx [nby,nbx] int32, best_cost float32,
+    best_sad int32): the first d minimising float32(sad) + mvcost[d], d in
+    dy-major order. The sweep, the mv cost and the argmin are kernel 5's
+    fused entry (ops.cuda_kernels.sad_sweep_argmin); best_sad, which that
+    entry does not return, is the SAD at the winning d, one block each."""
+    H, W = cur.shape
+    nby, nbx = H // S, W // S
+    n = 2 * R + 1
+    cur = cur.to(torch.int16).contiguous()
+    ref_pad = ref_pad.to(torch.int16).contiguous()
+    idx, cost = sad_sweep_argmin(cur, ref_pad,
+                                 mvcost.to(torch.float32).contiguous(), S, R)
+    dev = cur.device
+    ar = torch.arange(S, device=dev)
+    oy = (torch.arange(nby, device=dev)[:, None] * S
+          + torch.div(idx, n, rounding_mode="floor"))      # [nby, nbx]
+    ox = torch.arange(nbx, device=dev)[None, :] * S + idx % n
+    rows = (oy[..., None] + ar)[..., :, None]               # [nby,nbx,S,1]
+    cols = (ox[..., None] + ar)[..., None, :]               # [nby,nbx,1,S]
+    win = ref_pad[rows, cols].to(torch.int32)               # [nby,nbx,S,S]
+    blk = cur.to(torch.int32).reshape(nby, S, nbx, S).permute(0, 2, 1, 3)
+    sad = (blk - win).abs().sum(dim=(2, 3), dtype=torch.int32)
+    return idx, cost, sad
+
+
+def motion_decide(cur_y: np.ndarray, ref_y: np.ndarray, width: int,
+                  height: int, S: int = 16, R: int = 16, qp: int = 32,
+                  subme: int = 2, return_aux: bool = False,
+                  bit_depth: int = 8, device=None):
+    """Full-search + subpel-refined ME vs one reference frame.
+
+    Returns (mv [nby,nbx,2] quarter-pel int32, cost [nby,nbx] float32
+    satd+lambda*bits), numpy. subme: 0 = integer only, 1 = +half, >=2 =
+    +quarter (x265 --subme dial). With return_aux, additionally returns
+    the phase planes + block geometry for bi-prediction cost evaluation
+    (bi_cost, eval_mvs, refine_with_mvp, smooth_mv_field). R <= 24 sweeps
+    densely (kernel 5's fused entry); beyond it a sweep of the 2x
+    downscaled pair at R/2 finds the centres of a +-7 full-resolution
+    window search (kernel 5's window entry). The subpel rounds score
+    their candidates on kernel 3's fused gather + SATD.
+    """
+    device = resolve_device(device)
+    ph = -(-height // S) * S
+    pw = -(-width // S) * S
+    wire = np.int16 if bit_depth > 8 else np.uint8
+    cur = np.pad(np.asarray(cur_y).astype(wire),
+                 ((0, ph - height), (0, pw - width)), mode="edge")
+    ref = np.pad(np.asarray(ref_y).astype(wire),
+                 ((0, ph - height), (0, pw - width)), mode="edge")
+    nby, nbx = ph // S, pw // S
+    N = nby * nbx
+
+    def up(a, dtype=torch.int16):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device=device, dtype=dtype)
+
+    lam = np.float32(np.sqrt(0.85 * 2.0 ** ((qp - 12) / 3.0)))
+    cur_t = up(cur)
+
+    # --- integer search ---
+    if R <= 24:
+        n = 2 * R + 1
+        dys, dxs = np.mgrid[-R:R + 1, -R:R + 1]
+        mvcost = lam * (_mv_bits(4 * dxs.ravel()) + _mv_bits(4 * dys.ravel()))
+        idx, cost, _ = _int_search(cur_t, up(np.pad(ref, R, mode="edge")),
+                                   up(mvcost, torch.float32), S, R)
+        idx = idx.cpu().numpy()
+        mv_int = np.stack([(idx % n) - R, (idx // n) - R], axis=-1)  # (dx,dy)
+        cost = cost.cpu().numpy()
+    else:
+        from x265_tpu_torch.engine.planes import pad_dev
+        R2 = (R + 1) // 2
+        S2 = S // 2
+        cur_l = _downscale2(cur_t)
+        ref_l = _downscale2(up(ref))
+        n2 = 2 * R2 + 1
+        dys, dxs = np.mgrid[-R2:R2 + 1, -R2:R2 + 1]
+        mvcost2 = lam * (_mv_bits(8 * dxs.ravel())
+                         + _mv_bits(8 * dys.ravel()))
+        idx2, _, _ = _int_search(cur_l, pad_dev(ref_l, (R2, R2, R2, R2)),
+                                 up(mvcost2, torch.float32), S2, R2)
+        idx2 = idx2.cpu().numpy()
+        mv_half = np.stack([(idx2 % n2) - R2, (idx2 // n2) - R2], axis=-1)
+        W_r = 7
+        centers = np.clip(mv_half * 2, -(R - W_r), R - W_r).reshape(-1, 2)
+        mv_loc, cost_loc = _local_search(
+            _to_blocks(cur_t.to(torch.int32), nby, nbx, S),
+            up(np.pad(ref, R, mode="edge")), up(centers, torch.int32),
+            _block_grid(nby, nbx, device), lam, S, W_r, R)
+        mv_int = mv_loc.cpu().numpy().reshape(nby, nbx, 2)
+        cost = cost_loc.cpu().numpy().reshape(nby, nbx)
+
+    if subme <= 0:
+        mv = (mv_int * 4).astype(np.int32)
+        if return_aux:
+            raise ValueError("return_aux requires subme >= 1 (phase planes)")
+        return mv, np.asarray(cost).astype(np.float32)
+
+    # --- subpel refinement on quarter-pel phase planes ---
+    margin = R + 2            # int-pel padding available in the planes
+    ref_pad_s = np.pad(ref, ((margin + 3, margin + 4),
+                             (margin + 3, margin + 4)), mode="edge")
+    planes = _phase_planes(up(ref_pad_s), (1 << bit_depth) - 1)
+    bx, by = np.meshgrid(np.arange(nbx), np.arange(nby))
+    cur_blocks = _to_blocks(cur_t.to(torch.int32), nby, nbx, S)
+    bxy = np.stack([bx.reshape(-1), by.reshape(-1)], axis=1)
+    best2, cost2 = _refine_rounds(cur_blocks, planes, (mv_int * 4).reshape(
+        N, 2), bxy, torch.zeros((N, 2), dtype=torch.int32, device=device),
+        lam, subpel_rounds(subme), S, margin)
+    mv = best2.reshape(nby, nbx, 2)
+    cost = cost2.reshape(nby, nbx)
+    if return_aux:
+        aux = dict(planes=planes, cur_blocks=cur_blocks, bxy=bxy,
+                   margin=margin, lam=lam)
+        return mv.astype(np.int32), cost.astype(np.float32), aux
+    return mv.astype(np.int32), cost.astype(np.float32)
+
+
+def _refine_rounds(cur_blocks, planes, mv, bxy, mvp, lam, rounds, S, margin):
+    """The _refine rounds from quarter-pel mv [N,2] (host) at block
+    indices bxy [N,2] (host) against the predictor mvp [N,2] (device)
+    -> host (best mv [N,2] int32, its cost [N] float32)."""
+    dev = cur_blocks.device
+    state = torch.from_numpy(np.concatenate(
+        [mv, bxy], axis=1).astype(np.int32)).to(dev)
+    best = state[:, :2]
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=dev)
+    cost = None
+    for offs in rounds:
+        best, cost = _refine(cur_blocks, planes,
+                             torch.cat([best, state[:, 2:]], dim=1),
+                             torch.from_numpy(offs).to(dev), lam, mvp,
+                             S, margin)
+    return best.cpu().numpy(), cost.cpu().numpy()
+
+
+def refine_with_mvp(aux, mv: np.ndarray, mvp: np.ndarray, subme: int = 2):
+    """Re-run the subpel refinement + final costing with MVP-relative MV
+    bits (two-phase ME: pass 1 finds the motion with a (0,0) prior,
+    pass 2 re-costs against the neighborhood predictor so uniform motion
+    fields are cheap, like x265's AMVP-based mvcost).
+
+    Returns (mv [nby,nbx,2] qpel, cost [nby,nbx])."""
+    nby, nbx = mv.shape[:2]
+    N = nby * nbx
+    cur_blocks = aux["cur_blocks"]
+    rounds = subpel_rounds(subme)
+    if subme < 1:
+        rounds = [np.array([(0, 0)], dtype=np.int32)]
+    mvp_dev = torch.from_numpy(
+        mvp.reshape(N, 2).astype(np.int32)).to(cur_blocks.device)
+    best, cost = _refine_rounds(cur_blocks, aux["planes"], mv.reshape(N, 2),
+                                aux["bxy"], mvp_dev, aux["lam"], rounds,
+                                cur_blocks.shape[1], aux["margin"])
+    return (best.reshape(nby, nbx, 2).astype(np.int32),
+            cost.reshape(nby, nbx).astype(np.float32))
+
+
+def eval_mvs(aux, mv: np.ndarray) -> np.ndarray:
+    """Per-block SATD at arbitrary MVs using a motion_decide aux bundle."""
+    cur_blocks = aux["cur_blocks"]
+    dev = cur_blocks.device
+    satd = _eval_fixed(
+        cur_blocks, aux["planes"],
+        torch.from_numpy(mv.reshape(-1, 2).astype(np.int32)).to(dev),
+        torch.from_numpy(aux["bxy"].astype(np.int32)).to(dev),
+        cur_blocks.shape[1], aux["margin"])
+    return satd.cpu().numpy()
+
+
+def smooth_mv_field(mv, cost, aux, lam, group: int = 2,
+                    slack_bits: float = 24.0):
+    """Unify each group x group block neighborhood onto its modal MV when
+    the SATD increase is cheaper than the syntax saved by a merged CU
+    (the RD glue that lets the quadtree promote 16->32; x265 gets this
+    for free from recursive RDO). Host numpy over eval_mvs, as the
+    reference computes it."""
+    nby, nbx = mv.shape[:2]
+    gy, gx = nby // group, nbx // group
+    if gy == 0 or gx == 0:
+        return mv
+    g = mv[:gy * group, :gx * group].reshape(gy, group, gx, group, 2)
+    g = np.moveaxis(g, 3, 2).reshape(gy, gx, group * group, 2)
+    # modal mv: the member minimizing summed L1 distance to the others
+    d = np.abs(g[:, :, :, None, :] - g[:, :, None, :, :]).sum(axis=(3, 4))
+    modal_idx = d.argmin(axis=2)
+    modal = np.take_along_axis(
+        g, modal_idx[..., None, None], axis=2)[:, :, 0]       # [gy,gx,2]
+    cand = np.repeat(np.repeat(modal, group, 0), group, 1)    # [nby',nbx',2]
+    full = mv.copy()
+    full[:gy * group, :gx * group] = cand
+    satd_mode = eval_mvs(aux, full).reshape(nby, nbx)
+    satd_best = eval_mvs(aux, mv).reshape(nby, nbx)
+    dsum = (satd_mode - satd_best)[:gy * group, :gx * group]
+    dsum = dsum.reshape(gy, group, gx, group).sum(axis=(1, 3))
+    accept = dsum <= lam * slack_bits
+    acc_up = np.repeat(np.repeat(accept, group, 0), group, 1)
+    out = mv.copy()
+    sel = np.zeros(mv.shape[:2], dtype=bool)
+    sel[:gy * group, :gx * group] = acc_up
+    out[sel] = full[sel]
+    return out
+
+
+def bi_cost(mv0, aux0, mv1, aux1, S: int = 16, mvp0=None, mvp1=None):
+    """Bi-prediction cost per block from two motion_decide aux bundles:
+    SATD of the averaged prediction + lambda * mv bits of both MVs
+    (MVP-relative when predictors are given)."""
+    nby, nbx = mv0.shape[:2]
+    cur_blocks = aux0["cur_blocks"]
+    dev = cur_blocks.device
+
+    def up(a):
+        return torch.from_numpy(
+            np.ascontiguousarray(a).astype(np.int32)).to(dev)
+    satd = _bi_satd(cur_blocks, aux0["planes"], aux1["planes"],
+                    up(mv0.reshape(-1, 2)), up(mv1.reshape(-1, 2)),
+                    up(aux0["bxy"]), S, aux0["margin"])
+    d0 = mv0 - (mvp0 if mvp0 is not None else 0)
+    d1 = mv1 - (mvp1 if mvp1 is not None else 0)
+    bits = (_mv_bits(d0.reshape(-1, 2)).sum(1) +
+            _mv_bits(d1.reshape(-1, 2)).sum(1))
+    cost = satd.cpu().numpy().astype(np.float32) + aux0["lam"] * bits
+    return cost.reshape(nby, nbx)
+
+
 def mv_field_median3(mv: np.ndarray) -> np.ndarray:
     """Per-component 3x3 median of an MV field [nby,nbx,2] (edge-padded)
     — the decision-stage MV predictor (stands in for AMVP, which is only

@@ -484,6 +484,33 @@ GOLDEN_CASES = {
         "medium", "zerolatency", {"crf": "28", "frame-dup": "1",
                                   "hist-scenecut": "1", "scenecut": "0"},
         "make_dup_cut_clip", 23),
+    # the reference switches (Encoder attributes, GOLDEN_ATTRS): the
+    # numpy intra analysis (--no-tpu) on the low-latency I/P encode and
+    # with B frames; the Python writer on it and with SAO, deblock and
+    # RDOQ; config 3's options with the native walk quantizing every TB
+    # (the same stream as medium_abr's, which the digest shows)
+    "ultrafast_zerolatency_notpu": (
+        "ultrafast", "zerolatency",
+        {"qp": "30", "scenecut": "0", "ref": "1"}, "make_clip", 24),
+    "fast_crf_notpu": ("fast", None, {"crf": "28"}, "make_clip", 25),
+    "ultrafast_zerolatency_py": (
+        "ultrafast", "zerolatency",
+        {"qp": "30", "scenecut": "0", "ref": "1"}, "make_clip", 26),
+    "fast_zerolatency_rdoq_py": (
+        "fast", "zerolatency",
+        {"qp": "30", "scenecut": "0", "rdoq-level": "2"},
+        "make_ramp_clip", 27),
+    "medium_abr_cpu_residual": ("medium", None, {"bitrate": "100"},
+                                "make_clip", 3),
+}
+# Encoder attributes a golden case sets after construction, in both
+# packages (testclip.golden_stream sets them)
+GOLDEN_ATTRS = {
+    "ultrafast_zerolatency_notpu": {"use_tpu_analysis": False},
+    "fast_crf_notpu": {"use_tpu_analysis": False},
+    "ultrafast_zerolatency_py": {"use_native": False},
+    "fast_zerolatency_rdoq_py": {"use_native": False},
+    "medium_abr_cpu_residual": {"use_tpu_residual": False},
 }
 GOLDEN_SIZE = (192, 128, 5)          # width, height, frames
 GOLDEN_CUT = 3                       # the scene cut of make_cut_clip cases
@@ -498,7 +525,9 @@ GOLDEN_FRAMES = {"fast_crf": (11, None), "medium_crf_cut": (11, 7),
                  "slower_crf": (10, None),
                  "medium_slices3": (11, None), "medium_tskip": (11, None),
                  "medium_nr_slices2": (11, None),
-                 "medium_zerolatency_dup_hist": (7, 4)}
+                 "medium_zerolatency_dup_hist": (7, 4),
+                 "fast_crf_notpu": (11, None),
+                 "medium_abr_cpu_residual": (11, None)}
 GOLDEN_DUP = 2                       # the duplicate of make_dup_cut_clip
 # cases of their own size: 120 lines are 7.5 rows of 16, so the bottom
 # 8 lines are coded as 8x8 CUs, whose 4x4 chroma TBs transform skip can
@@ -591,7 +620,10 @@ def golden_stream(enc, name, frames):
     """(stream, per-picture QP maps) of a golden case through the entry
     point its digest records: Encoder.encode for GOLDEN_PIPELINED, else
     headers, encode_frame per picture and flush. A recon sink already on
-    the encoder still receives every picture."""
+    the encoder still receives every picture. The case's GOLDEN_ATTRS
+    are set on the encoder first."""
+    for attr, value in GOLDEN_ATTRS.get(name, {}).items():
+        setattr(enc, attr, value)
     qp_maps = []
 
     def note_qp():
