@@ -335,10 +335,10 @@ def plain_versions():
     saved = (inter_residual.tile_gather, inter_residual.mc_gather_interp,
              me.tile_gather_planes, me.tile_gather_planes_satd,
              me._satd_kernel, me.sad_sweep_argmin, me.sad_local_argmin,
-             lookahead.sad_sweep_argmin)
+             lookahead.sad_sweep_argmin, lookahead.satd_intra)
     # models/rdo.py and models/intra_rdo.py reach kernels 1 and 2 through
-    # inter_residual, engine/lookahead.py kernel 4 through me; me._bi_satd
-    # reaches kernels 3 and 4 through me
+    # inter_residual; engine/lookahead.py reaches kernel 4's intra entry
+    # and kernel 5 itself; me._bi_satd reaches kernels 3 and 4 through me
     inter_residual.tile_gather = cuda_mc.tile_gather_plain
     inter_residual.mc_gather_interp = cuda_mc.mc_gather_interp_plain
     me.tile_gather_planes = cuda_mc.tile_gather_planes_plain
@@ -347,13 +347,15 @@ def plain_versions():
     me.sad_sweep_argmin = cuda_kernels.sad_sweep_argmin_plain
     me.sad_local_argmin = cuda_kernels.sad_local_argmin_plain
     lookahead.sad_sweep_argmin = cuda_kernels.sad_sweep_argmin_plain
+    lookahead.satd_intra = cuda_kernels.satd_intra_plain
     try:
         yield
     finally:
         (inter_residual.tile_gather, inter_residual.mc_gather_interp,
          me.tile_gather_planes, me.tile_gather_planes_satd,
          me._satd_kernel, me.sad_sweep_argmin,
-         me.sad_local_argmin, lookahead.sad_sweep_argmin) = saved
+         me.sad_local_argmin, lookahead.sad_sweep_argmin,
+         lookahead.satd_intra) = saved
 
 
 def to_dev(a):
@@ -372,6 +374,30 @@ def gather_bytes(plane_elems, N, side, out_elems, n_index_arrays):
     windows cover more than it), the per-lane indices, the int32 output."""
     return (min(plane_elems, N * side * side) * 2
             + n_index_arrays * N * 4 + out_elems * 4)
+
+
+def intra_blocks(rng, n, maxv):
+    """n DC-removed 8x8 lowres blocks as the lookahead hands them to
+    satd_intra: int16 in [-maxv, maxv], the first three at the extremes
+    (all +maxv, all -maxv, a +-maxv checkerboard)."""
+    a = rng.integers(-maxv, maxv + 1, (n, 8, 8)).astype(np.int16)
+    yy, xx = np.mgrid[0:8, 0:8]
+    for i, blk in enumerate((np.full((8, 8), maxv), np.full((8, 8), -maxv),
+                             np.where((yy + xx) % 2, maxv, -maxv))[:n]):
+        a[i] = blk
+    return torch.from_numpy(a).to(DEV)
+
+
+def sweep_planes(rng, P, h, w, R, maxv):
+    """P current planes [P, h, w] int16, each its reference [P, h+2R,
+    w+2R] moved by (1, -2) plus noise: interior minima, near-ties."""
+    ref = torch.from_numpy(rng.integers(
+        0, maxv + 1, (P, h + 2 * R, w + 2 * R)).astype(np.int16)).to(DEV)
+    noise = torch.from_numpy(
+        rng.integers(-2, 3, (P, h, w)).astype(np.int16)).to(DEV)
+    cur = (ref[:, R + 1:R + 1 + h, R - 2:R - 2 + w] + noise).clamp_(
+        0, maxv).contiguous()
+    return cur, ref
 
 
 def check_equal(name, got, want):
@@ -986,7 +1012,10 @@ def kernel_phase():
         ops=N * 4 * (64 + 384 + 64), library_ms=None)
 
     # --- satd: the same round's SATD -------------------------------------
-    for S, N_ in ((8, 1003), (16, 1003), (32, 77)):
+    # ragged counts too: the last warp of S=8 and S=16 part-filled, and
+    # the one-CTA-a-block form at S=24, 32 and 64
+    for S, N_ in ((8, 1003), (16, 1003), (32, 77), (8, 1), (8, 3),
+                  (16, 3), (24, 5), (64, 3)):
         a_ = rnd_i32(rng, 0, 256, N_ * S * S).reshape(N_, S, S)
         b_ = rnd_i32(rng, 0, 256, N_ * S * S).reshape(N_, S, S)
         check_equal(f"satd edge S={S}", cuda_kernels.satd(a_, b_),
@@ -1037,6 +1066,35 @@ def kernel_phase():
         ms=time_ms(lambda: cuda_kernels.satd(la_, lb_)),
         plain_ms=time_ms(lambda: cuda_kernels.satd_plain(la_, lb_), 5),
         bytes=2 * nl * 64 * 4 + nl * 4, ops=nl * (64 + 384 + 64))
+
+    # --- satd_intra: the lookahead's intra cost, one int16 operand ----
+    for N_ in (1, 3, 5, 1003):
+        for m in (255, 1023):
+            a_ = intra_blocks(rng, N_, m)
+            check_equal(f"satd8x8_intra edge N={N_} max {m}",
+                        cuda_kernels.satd_intra(a_),
+                        cuda_kernels.satd_intra_plain(a_))
+    a_ = intra_blocks(rng, nl, 255)
+    err = check_equal("satd8x8_intra lookahead",
+                      cuda_kernels.satd_intra(a_),
+                      cuda_kernels.satd_intra_plain(a_))
+    check_equal("satd8x8_intra == satd8x8 against zeros",
+                cuda_kernels.satd_intra(a_),
+                cuda_kernels.satd(a_.to(torch.int32),
+                                  torch.zeros_like(a_, dtype=torch.int32)))
+    a10 = intra_blocks(rng, nl, 1023)
+    err10 = check_equal("satd8x8_intra lookahead, 10-bit samples",
+                        cuda_kernels.satd_intra(a10),
+                        cuda_kernels.satd_intra_plain(a10))
+    # per 8x8 block: 2*8*24 butterfly adds, 64 abs-adds (no subtraction)
+    rows["satd8x8_intra"] = dict(
+        shape=f"a[{nl},8,8] int16 in [-255, 255] (the lookahead's "
+              "DC-removed 544x960 lowres blocks), against zero",
+        max_abs_err=err, max_abs_err_10bit=err10,
+        ms=time_ms(lambda: cuda_kernels.satd_intra(a_)),
+        plain_ms=time_ms(lambda: cuda_kernels.satd_intra_plain(a_), 5),
+        bytes=nl * 64 * 2 + nl * 4, ops=nl * (384 + 64), library_ms=None)
+    del a10
 
     # --- sad_sweep / sad_sweep_argmin: the dense integer search ----------
     def sweep_case(name, h, w, S, R, flat=False, zero_cost=False, maxv=255,
@@ -1171,6 +1229,28 @@ def kernel_phase():
         bytes=(cur.numel() + ref.numel()) * 2 + n * n * 4 + nb * 8,
         ops=3 * n * n * h * w + 2 * n * n * nb)
 
+    # the batch axis of the argmin entry (the slice-type search's pair
+    # pass): P planes in one launch against P single-plane calls and the
+    # plain version; a stack of one equals the 2-D call
+    for P_, h, w, R, m in ((3, 64, 96, 8, 255), (5, 40, 56, 8, 1023),
+                           (2, 544, 960, 8, 255), (2, 544, 960, 8, 1023),
+                           (1, 64, 104, 4, 255)):
+        cur, ref = sweep_planes(rng, P_, h, w, R, m)
+        mvc = torch.zeros(((2 * R + 1) ** 2,), dtype=torch.float32,
+                          device=DEV)
+        gi, gc = cuda_kernels.sad_sweep_argmin(cur, ref, mvc, 8, R)
+        wi, wc = cuda_kernels.sad_sweep_argmin_plain(cur, ref, mvc, 8, R)
+        name = f"sad_sweep_argmin batch P={P_} {h}x{w} R={R} max {m}"
+        check_equal(name, gi, wi)
+        if not torch.equal(gc, wc):
+            fail(f"{name}: cost differs from plain")
+        for p_ in range(P_):
+            si, sc = cuda_kernels.sad_sweep_argmin(cur[p_], ref[p_], mvc,
+                                                   8, R)
+            if not (torch.equal(si, gi[p_]) and torch.equal(sc, gc[p_])):
+                fail(f"{name}: plane {p_} differs from its own launch")
+    del cur, ref
+
     # the slow preset's dense integer search (--me star): the whole
     # 1088x1920 picture at S=16, R=57 (n = 115: fourteen runs of eight dy
     # and one at 107) against the crop of a reference padded by R+6,
@@ -1270,6 +1350,8 @@ META = {
                                 "x265_tpu/ops/pallas_mc.py:275"),
     "satd8x8": ("x265_tpu_torch/csrc/satd.cu",
                 "x265_tpu/ops/pallas_kernels.py:58"),
+    "satd8x8_intra": ("x265_tpu_torch/csrc/satd.cu",
+                      "x265_tpu/ops/pallas_kernels.py:58"),
     "sad_sweep": ("x265_tpu_torch/csrc/sad_sweep.cu",
                   "x265_tpu/ops/pallas_kernels.py:127"),
     "sad_sweep_argmin": ("x265_tpu_torch/csrc/sad_sweep.cu",
@@ -1283,12 +1365,17 @@ META = {
 # kernel returns (every path calls the fused entries of the same kernel
 # instead); tile_gather_planes, the blocks entry of kernel 3, serves
 # me._bi_satd, which only B pictures run
-LOW_LATENCY_OFF_PATH = ("sad_sweep", "tile_gather_planes")
+LOW_LATENCY_OFF_PATH = ("sad_sweep", "tile_gather_planes",
+                        # CQP without scene cuts runs no lookahead
+                        "satd8x8_intra")
 # the dense search of the slow preset replaces the two-level search, so
 # its path never runs the window entry
 OFF_PATH = {"encode_1080p": LOW_LATENCY_OFF_PATH,
             "encode_1080p_filtered": LOW_LATENCY_OFF_PATH,
-            "encode_1080p_live": LOW_LATENCY_OFF_PATH,
+            # the live encode's only SATD is the lookahead's intra cost
+            # (the one-operand entry): no B pictures, no motion tuples
+            "encode_1080p_live": ("sad_sweep", "tile_gather_planes",
+                                  "satd8x8"),
             "encode_1080p_medium": ("sad_sweep",),
             "encode_1080p_slow": ("sad_sweep", "sad_local_argmin"),
             "encode_2160p_main10_hdr10": ("sad_sweep", "sad_local_argmin"),
@@ -1310,7 +1397,7 @@ OFF_PATH = {"encode_1080p": LOW_LATENCY_OFF_PATH,
             "ladder_2160p_2proc": ("sad_sweep",),
             # the motion API runs no RD pass and no residual
             "motion_api_1080p": ("sad_sweep", "mc_gather_interp",
-                                 "tile_gather")}
+                                 "tile_gather", "satd8x8_intra")}
 # the kernels of the motion search, which an encode that loads its
 # decisions must not launch
 MOTION_KERNELS = ("tile_gather_planes", "tile_gather_planes_satd",
@@ -1321,7 +1408,7 @@ MOTION_KERNELS = ("tile_gather_planes", "tile_gather_planes_satd",
 SHAPES_ON_PATH = ("lookahead", "rd_adopt_luma", "rd_adopt_chroma",
                   "rd_promote64", "bi_residual", "bi_satd", "slicetype",
                   "dense", "rd_adopt_luma_2160p_main10", "dense_2160p_main10",
-                  "motion_decide_r16")
+                  "motion_decide_r16", "slicetype_batch")
 # the path whose dense-search launches each dense shape reports
 DENSE_PATH = {"dense": "encode_1080p_slow",
               "dense_2160p_main10": "encode_2160p_main10_hdr10",
@@ -1685,6 +1772,82 @@ def main_path(phase, params_fn, frames, card, types_want, stages_want=(),
          plain_pictures=plain_frames, plain_seconds=t_plain,
          bits=[s["bits"] for s in enc.frame_stats], **extra)
     return launches, int_stage["launches"]
+
+
+@contextlib.contextmanager
+def pair_passes(log):
+    """Record, for every pass of the slice-type search's pair costs,
+    (distinct current planes, pairs): the shapes of its one intra launch
+    and its one batched sweep launch."""
+    fn = lookahead._batched_pair_fn
+
+    def spy(curs, refs, cur_of):
+        log.append((int(curs.shape[0]), int(refs.shape[0])))
+        return fn(curs, refs, cur_of)
+    lookahead._batched_pair_fn = spy
+    try:
+        yield
+    finally:
+        lookahead._batched_pair_fn = fn
+
+
+def pair_window_phase(card, rows, passes):
+    """Kernel 4's intra entry and kernel 5's batched argmin at the shapes
+    of config 3's first pair pass (U distinct current planes, P pairs of
+    544x960 lowres planes, S=8, R=8, no mv cost), held against the plain
+    versions at 8 and 10 bits and timed; beside them the P one-plane
+    launches the pass replaced."""
+    U, P = passes[0]
+    rng = np.random.default_rng(12)
+    h, w, S, R = 544, 960, 8, 8
+    n, nl = 2 * R + 1, (h // 8) * (w // 8)
+    a_ = intra_blocks(rng, U * nl, 255)
+    e = check_equal("satd8x8_intra window", cuda_kernels.satd_intra(a_),
+                    cuda_kernels.satd_intra_plain(a_))
+    a10 = intra_blocks(rng, U * nl, 1023)
+    e10 = check_equal("satd8x8_intra window, 10-bit samples",
+                      cuda_kernels.satd_intra(a10),
+                      cuda_kernels.satd_intra_plain(a10))
+    del a10
+    rows["satd8x8_intra"]["slicetype"] = dict(
+        shape=f"a[{U}*{nl},8,8] int16 in [-255, 255]: the {U} distinct "
+              "current planes of config 3's first pair pass",
+        max_abs_err=e, max_abs_err_10bit=e10,
+        ms=time_ms(lambda: cuda_kernels.satd_intra(a_)),
+        plain_ms=time_ms(lambda: cuda_kernels.satd_intra_plain(a_), 3),
+        bytes=U * nl * (64 * 2 + 4), ops=U * nl * (384 + 64))
+    mvc = torch.zeros((n * n,), dtype=torch.float32, device=DEV)
+    errs = []
+    for m in (1023, 255):              # the 8-bit planes are then timed
+        cur, ref = sweep_planes(rng, P, h, w, R, m)
+        gi, gc = cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R)
+        wi, wc = cuda_kernels.sad_sweep_argmin_plain(cur, ref, mvc, S, R)
+        errs.append(check_equal(f"sad_sweep_argmin window max {m}", gi, wi))
+        if not torch.equal(gc, wc):
+            fail(f"sad_sweep_argmin window max {m}: cost differs")
+    nb = (h // S) * (w // S)
+    rows["sad_sweep_argmin"]["slicetype_batch"] = dict(
+        shape=f"cur[{P},{h},{w}] ref_pad[{P},{h + 2 * R},{w + 2 * R}] i16 "
+              f"S=8 R=8 mvcost[{n * n}] zeros: config 3's first pair pass",
+        max_abs_err=errs[1], max_abs_err_10bit=errs[0],
+        ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S,
+                                                         R), 5),
+        plain_ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin_plain(
+            cur, ref, mvc, S, R), 1),
+        diffs=P * n * n * h * w,
+        bytes=(cur.numel() + ref.numel()) * 2 + n * n * 4 + P * nb * 8,
+        ops=P * (3 * n * n * h * w + 2 * n * n * nb))
+
+    def singles():
+        for p_ in range(P):
+            cuda_kernels.sad_sweep_argmin(cur[p_], ref[p_], mvc, S, R)
+    single_ms = time_ms(singles, 3)
+    emit("pair_window", card=card, passes=passes,
+         distinct_current_planes=U, pairs=P,
+         satd8x8_intra_ms=rows["satd8x8_intra"]["slicetype"]["ms"],
+         sad_sweep_argmin_ms=rows["sad_sweep_argmin"]["slicetype_batch"][
+             "ms"],
+         sad_sweep_argmin_one_plane_launches_ms=single_ms)
 
 
 def check_main10_hdr10(phase, n):
@@ -2791,7 +2954,10 @@ def main():
          **{k: {"kernel_ms": v["ms"], "plain_ms": v["plain_ms"],
                 "shape": v["shape"], "max_abs_err": v["max_abs_err"],
                 **{x: v[x] for x in ("library_ms", "cold_l2_ms",
-                                     "coherent_ms", "wide_ms") if v.get(x)}}
+                                     "coherent_ms", "wide_ms") if v.get(x)},
+                # the other shapes of the path, timed so far
+                **{x: {"kernel_ms": v[x]["ms"]} for x in SHAPES_ON_PATH
+                   if x in v}}
             for k, v in rows.items()})
 
     if "--kernels-only" in sys.argv[1:]:
@@ -2880,8 +3046,18 @@ def main():
         plain = ("prefix" if types is not None else
                  "whole" if phase == "encode_1080p_medium" else
                  "first_minigop")
-        launches_by_path[phase], dense_by_path[phase] = main_path(
-            phase, params_fn, frames, card, types, stages, plain=plain)
+        log, seen = [], {}
+
+        def kernel_passes(enc, stream):
+            # the kernels' encode is over; the plain versions' comes next
+            seen["passes"] = list(log)
+            return {"pair_passes": seen["passes"]}
+        with pair_passes(log):
+            launches_by_path[phase], dense_by_path[phase] = main_path(
+                phase, params_fn, frames, card, types, stages, plain=plain,
+                check=kernel_passes)
+        if phase == "encode_1080p_medium":
+            pair_window_phase(card, rows, seen["passes"])
 
     # ---- config 3 with every TB quantized by the native walk
     # (use_tpu_residual = False): encode_1080p_medium's stream, byte for

@@ -5,13 +5,35 @@ references, subme 3, B frames placed by b-adapt 2. The port's stream and
 QPs equal the JAX package's (the JAX stream held against the committed
 golden digest) and the stream decodes in the port's decoder to the
 encoder's recon. A file of its own: the JAX side's dense search on the
-CPU takes most of a few minutes."""
+CPU takes most of a few minutes.
+
+The JAX side compiles without JAX's persistent compilation cache (the
+directory X265TPU_XLA_CACHE names, shared by every test process). That
+cache takes no lock when it has no size cap, writes an entry in place,
+and stores it zstd-compressed without a checksum, so two processes that
+write one entry at once can leave a torn entry that a third loads. This
+file compiles the largest JAX programs of the port's tests (the dense
+R=57 search); a test process running it was lost once inside a cache read
+and it failed once under the six-process run while passing alone. It now
+reads and writes no entry, at about a minute more of compiles."""
+import pytest
+from jax._src import compilation_cache
+
 from x265_tpu_torch.engine import me as tme
 from x265_tpu_torch.models import inter_residual as tir
 from torch_port_util import assert_decodes_to_recon, golden_encoders
 
 
-def test_slow_crf_rdoq_rqt_dense_search(monkeypatch):
+@pytest.fixture
+def no_persistent_xla_cache(monkeypatch):
+    """No cache key for any compile of the test: JAX then neither reads
+    nor writes the persistent cache (the in-process caches stay)."""
+    monkeypatch.setattr(compilation_cache, "is_cache_used",
+                        lambda backend: False)
+
+
+def test_slow_crf_rdoq_rqt_dense_search(monkeypatch,
+                                        no_persistent_xla_cache):
     ranges, splits = [], []
     int_stage, pre = tme._int_stage, tir.build_inter_pre
 

@@ -70,6 +70,10 @@ def test_cuda_kernels_equal_plain_on_the_card():
     for got, want in zip(cuda_kernels.sad_local_argmin(*la),
                          cuda_kernels.sad_local_argmin_plain(*la)):
         assert torch.equal(got, want)
+    # the SATD kernel's intra entry: DC-removed int16 blocks against zero
+    a16 = T(rng.integers(-255, 256, (N, 8, 8)).astype(np.int16)).to(dev)
+    assert torch.equal(cuda_kernels.satd_intra(a16),
+                       cuda_kernels.satd_intra_plain(a16))
     for k in before:
         assert cuda_mc.launches[k] == before[k] + 1
 
@@ -285,3 +289,96 @@ def test_predict_intra_batch_on_the_card_equals_the_cpu(nt):
                 assert got.is_cuda
                 assert torch.equal(got.cpu(),
                                    predict_intra_batch(*a, device="cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,N", [(8, 1), (8, 3), (8, 8160), (16, 3),
+                                 (16, 1003), (24, 5), (32, 77), (64, 3)])
+def test_satd_every_shape_equals_plain_on_the_card(S, N):
+    """Kernel 4's two-operand entry: eight lanes a sub-block, four blocks
+    a warp at S=8 (ragged N: the last warp part-filled), a warp a block
+    at S=16, a CTA a block above; 8- and 10-bit samples."""
+    dev = _dev()
+    rng = np.random.default_rng(S * N)
+    for maxv in (255, 1023):
+        a = T(rng.integers(0, maxv + 1, (N, S, S)).astype(np.int32)).to(dev)
+        b = T(rng.integers(0, maxv + 1, (N, S, S)).astype(np.int32)).to(dev)
+        assert torch.equal(cuda_kernels.satd(a, b),
+                           cuda_kernels.satd_plain(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 3, 5, 8160, 10 * 8160])
+def test_satd_intra_equals_plain_on_the_card(N):
+    """Kernel 4's one-operand int16 entry at the lookahead's and a pair
+    window's shapes, with the extreme samples of 8 and 10 bits and of
+    int16: equal to its plain version and to satd(a, zeros); one launch a
+    call."""
+    dev = _dev()
+    rng = np.random.default_rng(N)
+    for maxv in (255, 1023, 32767):
+        a = rng.integers(-maxv, maxv + 1, (N, 8, 8))
+        a[:3] = np.stack([np.full((8, 8), maxv), np.full((8, 8), -maxv),
+                          np.where(np.indices((8, 8)).sum(0) % 2, maxv,
+                                   -maxv)])[:N]
+        a = T(a.astype(np.int16)).to(dev)
+        before = cuda_mc.launches["satd8x8_intra"]
+        got = cuda_kernels.satd_intra(a)
+        assert cuda_mc.launches["satd8x8_intra"] == before + 1
+        assert torch.equal(got, cuda_kernels.satd_intra_plain(a))
+        a32 = a.to(torch.int32)
+        assert torch.equal(got, cuda_kernels.satd(a32, torch.zeros_like(a32)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,h,w,R,maxv", [(1, 64, 96, 8, 255),
+                                          (3, 64, 96, 8, 1023),
+                                          (17, 40, 56, 8, 255),
+                                          (5, 64, 104, 4, 255),
+                                          (2, 544, 960, 8, 1023)])
+def test_batched_sweep_argmin_equals_plain_on_the_card(P, h, w, R, maxv):
+    """Kernel 5's argmin entry over a stack of P planes (a grid row a
+    plane) in one launch == its plain version == P one-plane launches."""
+    dev = _dev()
+    rng = np.random.default_rng(P * R)
+    ref = T(rng.integers(0, maxv + 1, (P, h + 2 * R, w + 2 * R))
+            .astype(np.int16)).to(dev)
+    cur = ref[:, R + 1:R + 1 + h, R - 2:R - 2 + w].contiguous()
+    mvc = torch.zeros(((2 * R + 1) ** 2,), dtype=torch.float32, device=dev)
+    before = cuda_mc.launches["sad_sweep_argmin"]
+    gi, gc = cuda_kernels.sad_sweep_argmin(cur, ref, mvc, 8, R)
+    assert cuda_mc.launches["sad_sweep_argmin"] == before + 1
+    wi, wc = cuda_kernels.sad_sweep_argmin_plain(cur, ref, mvc, 8, R)
+    assert torch.equal(gi, wi) and torch.equal(gc, wc)
+    for p in range(P):
+        si, sc = cuda_kernels.sad_sweep_argmin(cur[p], ref[p], mvc, 8, R)
+        assert torch.equal(si, gi[p]) and torch.equal(sc, gc[p])
+
+
+@pytest.mark.gpu
+def test_batched_pair_costs_on_the_card_equals_the_cpu():
+    """A window's pairs costed on the card in one intra launch, one sweep
+    launch and one copy == the CPU's plain versions; the window's second
+    call comes from the memo and launches nothing."""
+    dev = _dev()
+    from x265_tpu_torch.engine import lookahead
+    rng = np.random.default_rng(9)
+    lows = [rng.integers(0, 256, (64, 96)).astype(np.int32)
+            for _ in range(6)]
+    lows_dev = [T(x).to(dev) for x in lows]
+    idx = [(c, r) for r in range(6) for c in range(6) if c != r][:17]
+    before = dict(cuda_mc.launches)
+    got = lookahead.batched_pair_costs(
+        [(lows_dev[c], lows_dev[r]) for c, r in idx], device=dev)
+    assert cuda_mc.launches["satd8x8_intra"] == before["satd8x8_intra"] + 1
+    assert (cuda_mc.launches["sad_sweep_argmin"]
+            == before["sad_sweep_argmin"] + 1)
+    want = lookahead.batched_pair_costs(
+        [(lows[c], lows[r]) for c, r in idx], device="cpu")
+    for g, w_ in zip(got, want):
+        assert np.array_equal(g, w_)
+    again = lookahead.batched_pair_costs(
+        [(lows_dev[c], lows_dev[r]) for c, r in idx], device=dev)
+    assert all(a is b for a, b in zip(again, got))
+    assert cuda_mc.launches["sad_sweep_argmin"] == (
+        before["sad_sweep_argmin"] + 1)

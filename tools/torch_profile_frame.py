@@ -33,7 +33,10 @@ times are host time. Prints one JSON object:
 the wall time, the device's busy time and idle share inside it, the
 per-stage seconds (and the lookahead's share of the wall time), the
 device time of the hand-written kernels, and the kernels that took most
-of the device's time. With --out it also writes the Chrome trace.
+of the device's time; beside them the warm-up's stage seconds (each stage
+ending in a synchronise) and the kernel launches it made (for medium and
+slow the warm-up holds the slice-type search's pair pass). With --out it
+also writes the Chrome trace.
 """
 import argparse
 import json
@@ -48,6 +51,7 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402  (exits when there is no CUDA device)
 from x265_tpu_torch.api.encoder import Encoder  # noqa: E402
+from x265_tpu_torch.ops import cuda_build, cuda_mc  # noqa: E402
 from x265_tpu_torch.utils import profiling  # noqa: E402
 
 # name fragments of the hand-written kernels; the three tile_gather kernels
@@ -101,6 +105,11 @@ def main():
     else:
         frames = chip_smoke.make_clip(W, H, n, seed=11)
         enc = Encoder(chip_smoke.slice_params(W, H))
+    cuda_build.get_lib()            # the build is no part of the warm-up
+    profiling.reset()
+    profiling.set_sync(args.config != "lossless")
+    cuda_mc.reset_launches()
+    t_warm = time.perf_counter()
     if args.config == "lossless":
         step = lambda: enc.encode(frames)  # noqa: E731
     elif args.config in ("medium", "slow", "main10", "slices"):
@@ -117,8 +126,11 @@ def main():
             enc.encode_frame(*f)
         step = lambda: enc.encode_frame(*frames[-1])  # noqa: E731
     torch.cuda.synchronize()
+    warmup = {"seconds": time.perf_counter() - t_warm,
+              "stage_ms": {k: v["seconds"] * 1e3
+                           for k, v in profiling.report().items()},
+              "launches": dict(cuda_mc.launches)}
     profiling.reset()
-    profiling.set_sync(args.config != "lossless")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -154,7 +166,7 @@ def main():
         "frame_wall_ms": wall * 1e3, "stage_ms": stage_ms,
         "slowest_stage": max(stage_ms, key=stage_ms.get, default=None),
         "lookahead_share_of_wall": stage_ms.get("lookahead", 0.0)
-        / (wall * 1e3),
+        / (wall * 1e3), "warmup": warmup,
     }
     if rows:
         ours = {k: sum(r[1] for r in rows if k in r[0]) for k in OURS}

@@ -44,3 +44,28 @@ __device__ __forceinline__ int32_t had8_columns_abs_sum(const int32_t* d) {
   }
   return s;
 }
+
+// The same transform and sum with one ROW of the 8x8 block in each of eight
+// consecutive lanes of a warp (lane & 7 = row). v holds the lane's row,
+// already through had8; the columns are transformed across the eight lanes
+// by xor butterflies on the lane index (the stages of had8, one stage a
+// bit), and the eight lanes' absolute sums are reduced the same way.
+// Returns the block's sum (>= 0) in all eight lanes. Every lane of the warp
+// must call it (full-mask shuffles): a lane without a block passes zeros.
+__device__ __forceinline__ int32_t had8_lanes_abs_sum(int32_t* v, int row) {
+#pragma unroll
+  for (int h = 1; h < 8; h <<= 1) {
+    const bool hi = (row & h) != 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int32_t o = __shfl_xor_sync(0xffffffffu, v[j], h);
+      v[j] = hi ? o - v[j] : v[j] + o;    // (a, b) -> (a + b, a - b)
+    }
+  }
+  int32_t s = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s += v[j] < 0 ? -v[j] : v[j];
+#pragma unroll
+  for (int m = 1; m < 8; m <<= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+  return s;
+}

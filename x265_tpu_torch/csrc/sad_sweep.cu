@@ -13,7 +13,9 @@
 //   x265_sad_sweep_argmin  cost = float(sad) + mvcost[d], first minimum
 //                          in d order: what engine.me._int_stage folds
 //                          over the field, which never reaches device
-//                          memory;
+//                          memory; with a batch axis over P planes (one
+//                          grid row a plane: the slice-type search costs a
+//                          window's pairs in one launch);
 //   x265_sad_local_argmin  every block has its own (S+2W) x (S+2W) window,
 //                          at an origin clipped into the plane, and its own
 //                          mv cost lam * (bits(4*(cx+dx-W)) + bits(4*(cy+dy-W))):
@@ -325,6 +327,14 @@ sad_sweep_kernel(const int16_t* __restrict__ cur,
   const int GY = 1 << gys, GX = 1 << gxs;
   const int n = 2 * R + 1;
   const int Wp = W + 2 * R;
+  // the batch axis of the argmin entry: plane blockIdx.y of [P, ...] stacks
+  {
+    const long long p = blockIdx.y;
+    cur += p * (nby * S) * (long long)W;
+    ref += p * (nby * S + 2 * R) * (long long)Wp;
+    best_idx += ARGMIN ? p * nby * nbx : 0;
+    best_cost += ARGMIN ? p * nby * nbx : 0;
+  }
   const int ngx = (nbx + GX - 1) >> gxs;
   const int ggy = blockIdx.x / ngx;
   const int by0 = ggy << gys;
@@ -455,7 +465,7 @@ size_t dense_group(int S, int R, int nby, int nbx, int* gys, int* gxs) {
 template <int S, bool ARGMIN>
 cudaError_t launch_dense(const void* cur, const void* ref, const void* mvcost,
                          void* field, void* idx, void* cost, int H, int W,
-                         int R, cudaStream_t st) {
+                         int R, int P, cudaStream_t st) {
   const int nby = H / S, nbx = W / S;
   int gys = 0, gxs = 0;
   const size_t smem = dense_group(S, R, nby, nbx, &gys, &gxs);
@@ -469,7 +479,7 @@ cudaError_t launch_dense(const void* cur, const void* ref, const void* mvcost,
   }
   const int groups = ((nby + (1 << gys) - 1) >> gys) *
                      ((nbx + (1 << gxs) - 1) >> gxs);
-  kernel<<<groups, kThreads, smem, st>>>(
+  kernel<<<dim3(groups, P), kThreads, smem, st>>>(
       (const int16_t*)cur, (const int16_t*)ref, (const float*)mvcost,
       (float*)field, (int32_t*)idx, (float*)cost, W, R, nby, nbx, gys, gxs);
   return cudaGetLastError();
@@ -477,23 +487,26 @@ cudaError_t launch_dense(const void* cur, const void* ref, const void* mvcost,
 
 template <bool ARGMIN>
 int launch(const void* cur, const void* ref, const void* mvcost, void* field,
-           void* idx, void* cost, int H, int W, int S, int R, void* stream) {
-  if (H <= 0 || W <= 0 || R < 0 || S <= 0 || H % S || W % S)
+           void* idx, void* cost, int H, int W, int S, int R, int P,
+           void* stream) {
+  if (P == 0) return 0;
+  if (H <= 0 || W <= 0 || R < 0 || S <= 0 || H % S || W % S || P < 0 ||
+      P > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (S) {
     case 4:
       return (int)launch_dense<4, ARGMIN>(cur, ref, mvcost, field, idx, cost,
-                                          H, W, R, st);
+                                          H, W, R, P, st);
     case 8:
       return (int)launch_dense<8, ARGMIN>(cur, ref, mvcost, field, idx, cost,
-                                          H, W, R, st);
+                                          H, W, R, P, st);
     case 16:
       return (int)launch_dense<16, ARGMIN>(cur, ref, mvcost, field, idx,
-                                           cost, H, W, R, st);
+                                           cost, H, W, R, P, st);
     case 32:
       return (int)launch_dense<32, ARGMIN>(cur, ref, mvcost, field, idx,
-                                           cost, H, W, R, st);
+                                           cost, H, W, R, P, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -635,14 +648,16 @@ cudaError_t launch_local(const void* cur, const void* ref, const void* y0s,
 extern "C" int x265_sad_sweep(const void* cur, const void* ref, void* field,
                               int H, int W, int S, int R, void* stream) {
   return launch<false>(cur, ref, nullptr, field, nullptr, nullptr, H, W, S, R,
-                       stream);
+                       1, stream);
 }
 
+// P planes at once: cur [P, H, W], ref [P, H+2R, W+2R], idx and cost
+// [P, H/S, W/S], all contiguous; one mv cost for every plane.
 extern "C" int x265_sad_sweep_argmin(const void* cur, const void* ref,
                                      const void* mvcost, void* idx,
                                      void* cost, int H, int W, int S, int R,
-                                     void* stream) {
-  return launch<true>(cur, ref, mvcost, nullptr, idx, cost, H, W, S, R,
+                                     int P, void* stream) {
+  return launch<true>(cur, ref, mvcost, nullptr, idx, cost, H, W, S, R, P,
                       stream);
 }
 

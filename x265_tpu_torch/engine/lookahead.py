@@ -6,16 +6,20 @@ Half-res downscale + per-8x8 min(intra, inter) cost on the device: the
 complexity signal that drives CRF/ABR/VBV (ratecontrol.cpp
 rateEstimateQscale's m_currentSatd), the scenecut test and cuTree.
 
-The intra cost is the SATD kernel (engine.me.satd8_batched) of the
-DC-removed 8x8 blocks; the inter cost is the fused SAD sweep + argmin
-kernel (ops.cuda_kernels.sad_sweep_argmin) over the +-R integer window
-against the previous lowres plane, with no mv cost. Both are integer,
-so the costs and mvs equal the JAX package's exactly.
+The intra cost is the SATD kernel's one-operand entry
+(ops.cuda_kernels.satd_intra) on the DC-removed 8x8 blocks as int16; the
+inter cost is the fused SAD sweep + argmin kernel
+(ops.cuda_kernels.sad_sweep_argmin) over the +-R integer window against
+the previous lowres plane, with no mv cost. Both are integer, so the costs
+and mvs equal the JAX package's exactly.
 
 The B-frame slice-type search (slicetype_split) costs pairs of lowres
-planes with the same two kernels at a wider window (R=8), then runs its
-dynamic program on the host in float64 over the block maps, summed with
-the reference's own numpy calls, so its sums are exact.
+planes with the same two kernels at a wider window (R=8): every pair of a
+window that is not in the memo in one pass (one intra launch over the
+window's distinct current planes, one sweep launch over its pairs, one
+copy to the host), as the JAX package vmaps them. Its dynamic program
+runs on the host in float64 over the block maps, summed with the
+reference's own numpy calls, so its sums are exact.
 """
 from __future__ import annotations
 
@@ -24,9 +28,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from x265_tpu_torch.engine.me import satd8_batched
 from x265_tpu_torch.engine.planes import pad_dev
-from x265_tpu_torch.ops.cuda_kernels import sad_sweep_argmin
+from x265_tpu_torch.ops.cuda_kernels import sad_sweep_argmin, satd_intra
 from x265_tpu_torch.utils.device import resolve_device
 
 
@@ -48,6 +51,37 @@ def _downscale_and_costs(y: torch.Tensor, prev: torch.Tensor, lh: int,
     return low, icost, mcost, mv
 
 
+def _intra_costs(lows: torch.Tensor) -> torch.Tensor:
+    """SA8D energy after DC removal (lowresIntraEstimate proxy) of every
+    8x8 block of lows [U, H, W] -> [U, H/8, W/8] int32: one launch of
+    the SATD kernel's intra entry."""
+    U, H, W = lows.shape
+    nby, nbx = H // 8, W // 8
+    blocks = lows.reshape(U, nby, 8, nbx, 8).permute(0, 1, 3, 2, 4)
+    # the mean of 64 non-negative integers, truncated: sum >> 6
+    dc = blocks.sum(dim=(3, 4), keepdim=True, dtype=torch.int32) >> 6
+    # |sample - dc| < 2^bd: int16 at 8 and 10 bits
+    flat = (blocks - dc).to(torch.int16).reshape(-1, 8, 8).contiguous()
+    return satd_intra(flat).reshape(U, nby, nbx)
+
+
+def _inter_costs(curs: torch.Tensor, refs: torch.Tensor, R: int):
+    """Per 8x8 block of curs [P, H, W]: the least SAD over the
+    (2R+1)^2 integer window of refs [P, H, W] (edge-padded by R) and its
+    displacement -> (cost [P, H/8, W/8] int32, mv [P, H/8, W/8, 2] int32):
+    one launch of the sweep kernel's argmin entry."""
+    n = 2 * R + 1
+    refs_pad = pad_dev(refs, (R, R, R, R), torch.int16)
+    mvcost = torch.zeros((n * n,), dtype=torch.float32, device=refs.device)
+    # first minimum over d = dy*n + dx, as the JAX package's scan
+    idx, cost = sad_sweep_argmin(curs.to(torch.int16).contiguous(),
+                                 refs_pad, mvcost, 8, R)
+    mvx = idx % n - R
+    mvy = torch.div(idx, n, rounding_mode="floor") - R
+    return (cost.to(torch.int32),
+            torch.stack([mvx, mvy], dim=-1).to(torch.int32))
+
+
 def _lowres_costs(low: torch.Tensor, prev: torch.Tensor, R: int = 4):
     """Per-8x8-block (intra_cost, inter_cost, best_mv) on the lowres plane.
 
@@ -56,25 +90,9 @@ def _lowres_costs(low: torch.Tensor, prev: torch.Tensor, R: int = 4):
     (estimateCUCost's hex search collapsed to a dense sweep); best_mv is
     the winning displacement (cuTree propagation needs it).
     """
-    H, W = low.shape
-    nby, nbx = H // 8, W // 8
-    blocks = low.reshape(nby, 8, nbx, 8).permute(0, 2, 1, 3)
-    # the mean of 64 non-negative integers, truncated: sum >> 6
-    dc = blocks.sum(dim=(2, 3), keepdim=True, dtype=torch.int32) >> 6
-    flat = (blocks - dc).reshape(-1, 8, 8).contiguous()
-    icost = satd8_batched(flat, torch.zeros_like(flat)).reshape(nby, nbx)
-
-    n = 2 * R + 1
-    prev_pad = pad_dev(prev, (R, R, R, R), torch.int16)
-    mvcost = torch.zeros((n * n,), dtype=torch.float32, device=low.device)
-    # first minimum over d = dy*n + dx, as the JAX package's scan
-    idx, cost = sad_sweep_argmin(low.to(torch.int16).contiguous(),
-                                 prev_pad, mvcost, 8, R)
-    idx = idx.to(torch.int32)
-    mvx = idx % n - R
-    mvy = torch.div(idx, n, rounding_mode="floor") - R
-    return (icost.to(torch.int32), cost.to(torch.int32),
-            torch.stack([mvx, mvy], dim=-1).to(torch.int32))
+    icost = _intra_costs(low[None])[0]
+    mcost, mv = _inter_costs(low[None], prev[None], R)
+    return icost, mcost[0], mv[0]
 
 
 class Lookahead:
@@ -184,15 +202,19 @@ def cutree_propagate(records, ctb_log2: int, qcompress: float = 0.6,
     return np.clip(ctb_off, -float(max_off), 0.0)
 
 
-def _batched_pair_fn(cur, ref):
-    """One (cur, ref) lowres pair -> its per-block min(icost, 2*mcost)
-    int32 map (slicetype.cpp estimateFrameCost). The JAX package vmaps
-    this over a padded batch of pairs; here it is one pair a call (one
-    SATD and one SAD-sweep launch)."""
+def _batched_pair_fn(curs, refs, cur_of):
+    """The pairs (curs[cur_of[i]], refs[i]) of lowres planes -> their
+    per-block min(icost, 2*mcost) maps [P, nby, nbx] int32
+    (slicetype.cpp estimateFrameCost). curs [U, lh, lw] holds each
+    distinct current plane once, so a plane shared by several pairs is
+    intra-costed once; refs [P, lh, lw]; cur_of [P] int64. One intra
+    launch, one sweep launch; the JAX package vmaps the same costs over a
+    padded batch."""
+    ic = _intra_costs(curs)[cur_of]
     # wider window than the per-frame sweep: anchors sit up to bframes
     # frames away, so accumulated motion exceeds R=4
-    ic, mc, _ = _lowres_costs(cur, ref, R=8)
-    return torch.minimum(ic, mc * 2).to(torch.int32)
+    mc, _ = _inter_costs(curs[cur_of], refs, R=8)
+    return torch.minimum(ic, mc * 2)
 
 
 # pair-cost memo across slicetype_split calls: the b-adapt window SLIDES
@@ -215,24 +237,38 @@ def batched_pair_costs(pairs, device=None):
     """pairs: list of (cur_low, ref_low) planes of one shape (device
     tensors or numpy). Returns the per-pair min(icost, 2*mcost) block maps
     as host int32 arrays. Only pairs not in the sliding-window memo are
-    costed."""
+    costed, all of them in one pass with one copy to the host (no padding
+    to a bucket: the batch is as long as the pairs it costs)."""
     if not pairs:
         return []
     device = resolve_device(device)
     out = [None] * len(pairs)
+    todo = []
     for i, (cur, ref) in enumerate(pairs):
         key = (id(cur), id(ref))
         ent = _PAIR_CACHE.get(key)
         if ent is not None and ent[0] is cur and ent[1] is ref:
             _PAIR_CACHE.move_to_end(key)
             out[i] = ent[2]
-            continue
-        blk = _batched_pair_fn(_as_low(cur, device),
-                               _as_low(ref, device)).cpu().numpy()
-        out[i] = blk
-        _PAIR_CACHE[key] = (cur, ref, blk)
-    while len(_PAIR_CACHE) > _PAIR_CACHE_MAX:
-        _PAIR_CACHE.popitem(last=False)
+        else:
+            todo.append(i)
+    if todo:
+        slot = {}                    # id(cur plane) -> row of curs
+        for i in todo:
+            slot.setdefault(id(pairs[i][0]), (len(slot), pairs[i][0]))
+        curs = torch.stack([_as_low(c, device) for _, c in slot.values()])
+        refs = torch.stack([_as_low(pairs[i][1], device) for i in todo])
+        cur_of = torch.tensor([slot[id(pairs[i][0])][0] for i in todo],
+                              dtype=torch.int64, device=device)
+        blk = _batched_pair_fn(curs, refs, cur_of).cpu().numpy()
+        for k, i in enumerate(todo):
+            # one view a pair, the same object in the memo and the result
+            # (slicetype_split's B-cost memo keys by its identity)
+            out[i] = blk[k]
+            cur, ref = pairs[i]
+            _PAIR_CACHE[(id(cur), id(ref))] = (cur, ref, out[i])
+        while len(_PAIR_CACHE) > _PAIR_CACHE_MAX:
+            _PAIR_CACHE.popitem(last=False)
     return out
 
 

@@ -777,7 +777,7 @@ def _tuple_satd(cur, refs0_big, refs1_big, dirs, r0s, r1s, mv0s, mv1s,
                 out += int(fy[t]) * hor[t:t + H, :]
         return ((out + 2048) >> 12).clamp_(0, maxv)
 
-    outs = []
+    preds = []
     for k in range(K):
         d = int(dirs[k])
         if d == 3:
@@ -792,9 +792,10 @@ def _tuple_satd(cur, refs0_big, refs1_big, dirs, r0s, r1s, mv0s, mv1s,
         else:
             pred = plane_pred(refs1_big, r1s[k], int(mv1s[k][0]),
                               int(mv1s[k][1]))
-        blocks = _to_blocks(pred, nby, nbx, S)
-        outs.append(satd8_batched(cur_blocks, blocks).reshape(nby, nbx))
-    return torch.stack(outs)
+        preds.append(_to_blocks(pred, nby, nbx, S))
+    # the K candidates' blocks in one SATD launch
+    return satd8_batched(cur_blocks.repeat(K, 1, 1),
+                         torch.cat(preds)).reshape(K, nby, nbx)
 
 
 def tuple_satd(cur_y, ref0_ys, ref1_ys, cands, width, height, S=16,

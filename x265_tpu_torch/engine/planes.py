@@ -15,18 +15,19 @@ import torch
 
 
 def pad_dev(a: torch.Tensor, pads, dtype=None) -> torch.Tensor:
-    """Edge-pad a device plane on device. pads = (top, bottom, left,
-    right); dtype optionally casts. Index-select form: exact for every
-    integer type (no float round trip)."""
+    """Edge-pad a device plane (or a stack [..., H, W] of planes) on
+    device. pads = (top, bottom, left, right); dtype optionally casts.
+    Index-select form: exact for every integer type (no float round
+    trip)."""
     pt, pb, pl, pr = pads
-    H, W = a.shape
+    H, W = a.shape[-2:]
     if dtype is not None:
         a = a.to(dtype)
     if not (pt or pb or pl or pr):
         return a.contiguous()
     ry = torch.arange(-pt, H + pb, device=a.device).clamp_(0, H - 1)
     rx = torch.arange(-pl, W + pr, device=a.device).clamp_(0, W - 1)
-    return a[ry][:, rx].contiguous()
+    return a[..., ry, :][..., rx].contiguous()
 
 
 def is_planes(x) -> bool:

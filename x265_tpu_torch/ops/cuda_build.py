@@ -39,8 +39,9 @@ _SIGNATURES = {
     "x265_mc_gather_interp": [_P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "x265_satd8": [_P, _P, _P, _I, _I, _P],
+    "x265_satd8_intra": [_P, _P, _I, _P],
     "x265_sad_sweep": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "x265_sad_sweep_argmin": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "x265_sad_sweep_argmin": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "x265_sad_local_argmin": [_P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _L, _P],
     # yardsticks (csrc/calib.cu): no wrapper, nothing on the encoder's path

@@ -3,11 +3,13 @@ plain PyTorch versions.
 
 Counterpart of x265_tpu/ops/pallas_kernels.py (satd8x8_pallas /
 satd_pallas, sad_sweep_pallas); the kernels are csrc/satd.cu and
-csrc/sad_sweep.cu. The sweep has three entries: sad_sweep (the field,
-what the TPU kernel returns), sad_sweep_argmin (fused with the mv cost and
-the argmin; serves engine.me._int_stage) and sad_local_argmin (a window
-and an mv cost of its own for every block; serves
-engine.me._local_search). On a CUDA tensor a wrapper launches its kernel
+csrc/sad_sweep.cu. SATD has two entries: satd (two int32 operands) and
+satd_intra (one int16 operand against zero: the lookahead's intra cost).
+The sweep has three: sad_sweep (the field, what the TPU kernel returns),
+sad_sweep_argmin (fused with the mv cost and the argmin, over one plane
+or a stack of P; serves engine.me._int_stage and the lookahead) and
+sad_local_argmin (a window and an mv cost of its own for every block;
+serves engine.me._local_search). On a CUDA tensor a wrapper launches its kernel
 or raises; on a CPU tensor it runs the plain version. The launch counts
 live with the other kernels' in ops.cuda_mc.launches.
 """
@@ -59,15 +61,45 @@ def satd(a, b):
     N, S, _ = a.shape
     if a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError("SATD operands must be 16-byte aligned")
-    out = torch.zeros((N,), dtype=torch.int32, device=dev)
+    out = torch.empty((N,), dtype=torch.int32, device=dev)
     if N:
         lib = cuda_build.get_lib()
         with torch.cuda.device(dev):
             err = lib.x265_satd8(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                 N, S, torch.cuda.current_stream(dev)
-                                 .cuda_stream)
+                                 N, S, cuda_mc._stream(dev))
         cuda_build.check_launch(err, "satd8x8")
         cuda_mc.launches["satd8x8"] += 1
+    return out
+
+
+def satd_intra_plain(a):
+    """SATD of [N, 8, 8] blocks against zero -> [N] int32."""
+    return satd_plain(a, torch.zeros_like(a))
+
+
+def satd_intra(a):
+    """SATD of [N, 8, 8] int16 blocks against zero -> [N] int32: the
+    intra cost of DC-removed lowres blocks (engine.lookahead), with one
+    operand and half-width samples, a quarter of satd's bytes. Equal to
+    satd(a, zeros) for any int16 input."""
+    cuda_mc._check(a, "a", torch.int16, 3)
+    if tuple(a.shape[1:]) != (8, 8):
+        raise ValueError(f"satd_intra takes [N, 8, 8] blocks, got "
+                         f"{tuple(a.shape)}")
+    dev = a.device
+    if dev.type != "cuda":
+        return satd_intra_plain(a)
+    if a.data_ptr() % 16:
+        raise ValueError("satd_intra's operand must be 16-byte aligned")
+    N = a.shape[0]
+    out = torch.empty((N,), dtype=torch.int32, device=dev)
+    if N:
+        lib = cuda_build.get_lib()
+        with torch.cuda.device(dev):
+            err = lib.x265_satd8_intra(a.data_ptr(), out.data_ptr(), N,
+                                       cuda_mc._stream(dev))
+        cuda_build.check_launch(err, "satd8x8_intra")
+        cuda_mc.launches["satd8x8_intra"] += 1
     return out
 
 
@@ -107,7 +139,18 @@ def sad_sweep_argmin_plain(cur, ref_pad, mvcost, S: int, R: int):
     """First minimum of float(sad) + mvcost[d] over d = dy*n + dx. One
     step per dy covers every dx of that row at once; inside a row the
     first minimum wins, across rows a strict < keeps the earlier one: the
-    same winner as a displacement-by-displacement scan in d order."""
+    same winner as a displacement-by-displacement scan in d order. A stack
+    [P, H, W] is costed one plane at a time."""
+    if cur.dim() == 3:
+        P, H, W = cur.shape
+        idx = torch.empty((P, H // S, W // S), dtype=torch.int32,
+                          device=cur.device)
+        cost = torch.empty((P, H // S, W // S), dtype=torch.float32,
+                           device=cur.device)
+        for p in range(P):
+            idx[p], cost[p] = sad_sweep_argmin_plain(cur[p], ref_pad[p],
+                                                     mvcost, S, R)
+        return idx, cost
     H, W = cur.shape
     nby, nbx = H // S, W // S
     n = 2 * R + 1
@@ -126,15 +169,20 @@ def sad_sweep_argmin_plain(cur, ref_pad, mvcost, S: int, R: int):
     return best_idx.to(torch.int32), best_cost
 
 
-def _check_sweep(cur, ref_pad, S, R):
-    cuda_mc._check(cur, "cur", torch.int16, 2)
-    cuda_mc._check(ref_pad, "ref_pad", torch.int16, 2, cur.device)
-    H, W = cur.shape
+def _check_sweep(cur, ref_pad, S, R, batch=False):
+    """(H, W) of cur [H, W] (or, with batch, [P, H, W]) and its ref_pad."""
+    nd = 3 if batch and cur.dim() == 3 else 2
+    cuda_mc._check(cur, "cur", torch.int16, nd)
+    cuda_mc._check(ref_pad, "ref_pad", torch.int16, nd, cur.device)
+    H, W = cur.shape[-2:]
     if S not in (4, 8, 16, 32) or R < 0 or H < S or W < S or H % S or W % S:
         raise ValueError(f"bad SAD sweep geometry: cur {H}x{W}, S={S}, R={R}")
-    if tuple(ref_pad.shape) != (H + 2 * R, W + 2 * R):
+    want = (*cur.shape[:-2], H + 2 * R, W + 2 * R)
+    if tuple(ref_pad.shape) != want:
         raise ValueError(f"ref_pad is {tuple(ref_pad.shape)}, expected "
-                         f"{(H + 2 * R, W + 2 * R)}")
+                         f"{want}")
+    if nd == 3 and cur.shape[0] > 65535:
+        raise ValueError(f"{cur.shape[0]} planes: at most 65535 a launch")
     if ((S + 2 * R) ** 2 + S * S) * 2 > 48 * 1024:
         raise ValueError(f"search window of S={S}, R={R} does not fit a "
                          "thread block's shared memory")
@@ -166,8 +214,10 @@ def sad_sweep_argmin(cur, ref_pad, mvcost, S: int, R: int):
     """The sweep fused with its argmin: for every block the FIRST d that
     minimises float32(sad) + mvcost[d] (mvcost [(2R+1)^2] float32, lambda
     already applied) -> (best_idx [H/S, W/S] int32, best_cost float32).
-    Serves engine.me._int_stage."""
-    H, W = _check_sweep(cur, ref_pad, S, R)
+    cur [P, H, W] with ref_pad [P, H+2R, W+2R] costs P planes in one
+    launch against one mvcost -> [P, H/S, W/S] each. Serves
+    engine.me._int_stage and engine.lookahead."""
+    H, W = _check_sweep(cur, ref_pad, S, R, batch=True)
     dev = cur.device
     cuda_mc._check(mvcost, "mvcost", torch.float32, 1, dev)
     n = 2 * R + 1
@@ -176,16 +226,20 @@ def sad_sweep_argmin(cur, ref_pad, mvcost, S: int, R: int):
                          f"{n * n}")
     if dev.type != "cuda":
         return sad_sweep_argmin_plain(cur, ref_pad, mvcost, S, R)
-    idx = torch.empty((H // S, W // S), dtype=torch.int32, device=dev)
-    cost = torch.empty((H // S, W // S), dtype=torch.float32, device=dev)
-    lib = cuda_build.get_lib()
-    with torch.cuda.device(dev):
-        err = lib.x265_sad_sweep_argmin(
-            cur.data_ptr(), ref_pad.data_ptr(), mvcost.data_ptr(),
-            idx.data_ptr(), cost.data_ptr(), H, W, S, R,
-            cuda_mc._stream(dev))
-    cuda_build.check_launch(err, "sad_sweep_argmin")
-    cuda_mc.launches["sad_sweep_argmin"] += 1
+    lead = tuple(cur.shape[:-2])
+    P = lead[0] if lead else 1
+    idx = torch.empty((*lead, H // S, W // S), dtype=torch.int32, device=dev)
+    cost = torch.empty((*lead, H // S, W // S), dtype=torch.float32,
+                       device=dev)
+    if P:
+        lib = cuda_build.get_lib()
+        with torch.cuda.device(dev):
+            err = lib.x265_sad_sweep_argmin(
+                cur.data_ptr(), ref_pad.data_ptr(), mvcost.data_ptr(),
+                idx.data_ptr(), cost.data_ptr(), H, W, S, R, P,
+                cuda_mc._stream(dev))
+        cuda_build.check_launch(err, "sad_sweep_argmin")
+        cuda_mc.launches["sad_sweep_argmin"] += 1
     return idx, cost
 
 
