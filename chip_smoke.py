@@ -37,7 +37,11 @@ which must give encode_1080p_medium's stream), the standalone motion
 API (engine/me.motion_decide at merange 16 and 57 with its bundle
 functions) and the batched intra prediction at 1080p, and BASELINE
 config 5: an ABR ladder from 3840x2160 to 2160p/1080p/720p in one
-process and across two processes sharing the card (the same streams) —
+process and across two processes sharing the card (the same streams);
+then parallel/: the band step at 1088x1920 over four tiles of the card
+(kernel 5 a band, the halos, the summed frame cost) and config 3 without
+the device residual under a mesh of four tiles, which must give
+encode_1080p_medium's stream —
 and checks that each went through every kernel of its path. Every kernel is held on 8-bit and on 10-bit samples. One JSON line per phase; any failure ends the
 run with a non-zero exit code and no result line.
 """
@@ -1303,6 +1307,31 @@ def kernel_phase():
         ops=3 * n * n * h * w + 2 * n * n * nb)
     del cur, ref
 
+    # parallel/tiles._band_step's dense min-SAD: one 1080p band of four
+    # tiles (phase tiles_1080p), the band's 272 rows against the band
+    # extended by the R=8 halo rows above and below and padded by R
+    # columns, with a zero mv cost (only the minimum's value is used)
+    h, w, S, R = 1088 // 4, W, 16, 8
+    cur, ref, mvc, n, _e1, e2 = sweep_case("tiles band 272x1920 R=8", h, w,
+                                           S, R, zero_cost=True)
+    e10 = sweep_case("tiles band 272x1920 R=8, 10-bit samples", h, w, S, R,
+                     zero_cost=True, maxv=1023)[5]
+    nb = (h // S) * (w // S)
+    rows["sad_sweep_argmin"]["tiles_band"] = dict(
+        shape=f"cur[{h},{w}] ref_pad[{h + 2 * R},{w + 2 * R}] i16 S=16 "
+              f"R=8 mvcost[{n * n}] f32 zero",
+        max_abs_err=e2, max_abs_err_10bit=e10,
+        ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R),
+                   20),
+        cold_l2_ms=time_cold_ms(
+            lambda: cuda_kernels.sad_sweep_argmin(cur, ref, mvc, S, R), 10),
+        plain_ms=time_ms(lambda: cuda_kernels.sad_sweep_argmin_plain(
+            cur, ref, mvc, S, R), 5),
+        diffs=n * n * h * w,
+        bytes=(cur.numel() + ref.numel()) * 2 + n * n * 4 + nb * 8,
+        ops=3 * n * n * h * w + 2 * n * n * nb)
+    del cur, ref
+
     # BASELINE config 4's dense search at 2160p on 10-bit planes (S=16,
     # R=57). Each CTA takes the byte path when every sample it stages is
     # below 256 (dark PQ regions) and the int16 path otherwise: held and
@@ -1397,7 +1426,13 @@ OFF_PATH = {"encode_1080p": LOW_LATENCY_OFF_PATH,
             "ladder_2160p_2proc": ("sad_sweep",),
             # the motion API runs no RD pass and no residual
             "motion_api_1080p": ("sad_sweep", "mc_gather_interp",
-                                 "tile_gather", "satd8x8_intra")}
+                                 "tile_gather", "satd8x8_intra"),
+            # config 3 without the device residual under a mesh of four
+            # tiles: encode_1080p_medium_cpu_residual's kernels
+            "encode_1080p_medium_mesh4": ("sad_sweep",),
+            # the band step: kernel 5's fused entry, a launch a band
+            "tiles_1080p": tuple(k for k in META
+                                 if k != "sad_sweep_argmin")}
 # the kernels of the motion search, which an encode that loads its
 # decisions must not launch
 MOTION_KERNELS = ("tile_gather_planes", "tile_gather_planes_satd",
@@ -1408,11 +1443,12 @@ MOTION_KERNELS = ("tile_gather_planes", "tile_gather_planes_satd",
 SHAPES_ON_PATH = ("lookahead", "rd_adopt_luma", "rd_adopt_chroma",
                   "rd_promote64", "bi_residual", "bi_satd", "slicetype",
                   "dense", "rd_adopt_luma_2160p_main10", "dense_2160p_main10",
-                  "motion_decide_r16", "slicetype_batch")
+                  "motion_decide_r16", "slicetype_batch", "tiles_band")
 # the path whose dense-search launches each dense shape reports
 DENSE_PATH = {"dense": "encode_1080p_slow",
               "dense_2160p_main10": "encode_2160p_main10_hdr10",
-              "motion_decide_r16": "motion_api_1080p"}
+              "motion_decide_r16": "motion_api_1080p",
+              "tiles_band": "tiles_1080p"}
 # the main paths whose every integer search is the dense S=16 R=57 sweep
 DENSE_R57_PATHS = ("encode_1080p_slow", "encode_2160p_main10_hdr10")
 
@@ -1501,8 +1537,8 @@ def golden_phase():
         with tempfile.TemporaryDirectory() as tmp:     # fixture files
             enc = Encoder(testclip.golden_params(name, api_params, tmp,
                                                  encoder=Encoder))
-            encoded.append((name,) + testclip.golden_stream(enc, name,
-                                                            frames))
+            encoded.append((name,) + testclip.golden_stream(
+                enc, name, frames, mesh=testclip.golden_mesh(name, DEV)))
     devcache.clear()
     streams, _ = testclip.golden_ladder(ladder)
     encoded += [(name, stream, None) for name, stream in streams.items()]
@@ -2687,6 +2723,131 @@ def reference_switches_phase(card):
     return launches
 
 
+def tiles_path(card):
+    """parallel/tiles.sharded_frame_analysis at 1088x1920 over four
+    tiles of the card (tests/test_parallel.py's case at full width: a
+    seeded texture and the reference moved 5 rows down, the top row
+    repeated): the band step's min-SAD (kernel 5, a launch a band) equals
+    the whole-frame dense minimum of the plain version on the card and is
+    0 for every block off the bottom row; the frame cost equals the sum of
+    the bands' costs to 1e-5; mesh.make_tile_mesh(4) raises on one card.
+    Returns the launch counts and kernel 5's launches."""
+    from x265_tpu_torch.parallel import mesh as pmesh
+    from x265_tpu_torch.parallel.tiles import (make_tile_mesh,
+                                               sharded_frame_analysis)
+    phase, n_tiles, S, R, h = "tiles_1080p", 4, 16, 8, 1088
+    rng = np.random.default_rng(0)
+    y = rng.integers(0, 256, (h, W)).astype(np.int32)
+    ref = np.concatenate([np.repeat(y[:1], 5, axis=0), y[:-5]])
+    mesh = make_tile_mesh(n_tiles, devices=[DEV] * n_tiles)
+    if torch.cuda.device_count() < n_tiles:
+        try:
+            pmesh.make_tile_mesh(n_tiles)
+            fail(f"{phase}: make_tile_mesh({n_tiles}) did not raise on "
+                 f"{torch.cuda.device_count()} card(s)")
+        except RuntimeError:
+            pass
+    sharded_frame_analysis(mesh, y, ref, S=S, R=R)        # warm-up
+    torch.cuda.synchronize()
+    cuda_mc.reset_launches()
+    t0 = time.time()
+    modes, icost, mcost, frame_cost = sharded_frame_analysis(mesh, y, ref,
+                                                             S=S, R=R)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(cuda_mc.launches)
+    if launches["sad_sweep_argmin"] != n_tiles or any(
+            v for k, v in launches.items() if k != "sad_sweep_argmin"):
+        fail(f"{phase}: launches {launches}, expected {n_tiles} of "
+             "sad_sweep_argmin")
+    cur = torch.from_numpy(y.astype(np.int16)).to(DEV)
+    ref_pad = torch.from_numpy(np.pad(ref, R, mode="edge").astype(
+        np.int16)).to(DEV)
+    zero = torch.zeros(((2 * R + 1) ** 2,), dtype=torch.float32, device=DEV)
+    _, whole = cuda_kernels.sad_sweep_argmin_plain(cur, ref_pad, zero, S, R)
+    if not torch.equal(mcost, whole.to(torch.int32)):
+        fail(f"{phase}: the bands' min-SAD != the whole-frame plain sweep")
+    if int(mcost[:-1].max()) != 0:
+        fail(f"{phase}: a block off the bottom row missed its 5-row shift")
+    bands = np.minimum(icost.cpu().numpy().reshape(h // S, W // S),
+                       mcost.cpu().numpy() * 2.0).reshape(
+        n_tiles, -1).sum(axis=1, dtype=np.float64)
+    fc = float(frame_cost)
+    if not np.isfinite(fc) or abs(fc - bands.sum()) > 1e-5 * max(
+            1.0, abs(bands.sum())):
+        fail(f"{phase}: frame_cost {fc} != the bands' sum {bands.sum()}")
+    if modes.shape[0] != (h // S) * (W // S):
+        fail(f"{phase}: {modes.shape[0]} modes")
+    emit(phase, card=card, size=f"{W}x{h}", tiles=n_tiles,
+         devices=[str(d) for d in mesh.devices.flat], seconds=seconds,
+         launches=launches, frame_cost=fc, band_costs=bands.tolist(),
+         mcost_equals_whole_frame_plain=True,
+         make_tile_mesh_raises_on_one_card=torch.cuda.device_count()
+         < n_tiles)
+    return launches, launches["sad_sweep_argmin"]
+
+
+def mesh4_spy(seen):
+    """setup of encode_1080p_medium_mesh4: attach four tiles of the card
+    and count the mesh's intra analyses and motion-search bands."""
+    from x265_tpu_torch.parallel import tiles
+
+    def setup(enc):
+        enc.attach_mesh(tiles.make_tile_mesh(4, devices=[DEV] * 4))
+        intra, mesh_tiles = tiles.mesh_intra_decisions, me._mesh_tiles
+
+        def count_intra(*a, **kw):
+            seen["intra"] += 1
+            return intra(*a, **kw)
+
+        def count_tiles(mesh, nby):
+            t = mesh_tiles(mesh, nby)
+            seen["bands"] += len(t or ())
+            return t
+        tiles.mesh_intra_decisions = count_intra
+        me._mesh_tiles = count_tiles
+        seen["restore"] = lambda: (
+            setattr(tiles, "mesh_intra_decisions", intra),
+            setattr(me, "_mesh_tiles", mesh_tiles))
+    return setup
+
+
+def mesh4_check(seen):
+    """encode_1080p_medium_mesh4's stream is encode_1080p_medium's, the
+    mesh ran its intra analyses and banded searches, no device residual
+    ran."""
+    def check(enc, stream):
+        seen.pop("restore")()
+        want = PATH_STREAMS["encode_1080p_medium"]
+        if stream != want:
+            fail(f"encode_1080p_medium_mesh4: stream ({len(stream)} bytes) "
+                 f"!= encode_1080p_medium's ({len(want)} bytes)")
+        if not (seen["intra"] and seen["bands"]):
+            fail(f"encode_1080p_medium_mesh4: the mesh did not run {seen}")
+        if profiling.report().get("tpu_residual", {}).get("calls"):
+            fail("encode_1080p_medium_mesh4: the device residual ran")
+        return {"equals_encode_1080p_medium_stream": True,
+                "mesh_intra_analyses": seen["intra"],
+                "motion_search_bands": seen["bands"]}
+    return check
+
+
+def mesh4_refusal(frames):
+    """Under a mesh with the device residual on, the first inter picture
+    raises NotImplementedError naming the reference's fault."""
+    from x265_tpu_torch.parallel.tiles import make_tile_mesh
+    devcache.clear()
+    enc = Encoder(medium_params(W, H))
+    enc.attach_mesh(make_tile_mesh(4, devices=[DEV] * 4))
+    try:
+        enc.encode(frames)
+    except NotImplementedError as e:
+        if "_inter_multi" not in str(e):
+            fail(f"encode_1080p_medium_mesh4: refusal names {e}")
+        return "".join(s["type"] for s in enc.frame_stats)
+    fail("encode_1080p_medium_mesh4: the device residual ran under a mesh")
+
+
 def cpu_residual_check(enc, stream):
     """Config 3 with every TB quantized by the native walk: no device
     residual ran, and the stream is encode_1080p_medium's."""
@@ -3072,6 +3233,29 @@ def main():
     emit("switch_paths", card=card, **{
         k: PATH_NUMBERS[k] for k in ("encode_1080p_medium",
                                      "encode_1080p_medium_cpu_residual")})
+
+    # ---- parallel/: the band step at 1088x1920 over four tiles of the
+    # card, then config 3 without the device residual under a mesh of four
+    # tiles (encode_1080p_medium's stream, byte for byte), beside the
+    # unsharded runs; with the device residual a mesh encode is refused
+    launches_by_path["tiles_1080p"], dense_by_path["tiles_1080p"] = \
+        tiles_path(card)
+    seen = {"intra": 0, "bands": 0}
+    frames = list(clip_crowd1080(W, H, 11, seed=40))
+    launches_by_path["encode_1080p_medium_mesh4"], _ = main_path(
+        "encode_1080p_medium_mesh4", medium_params, frames, card, None,
+        ("slicetype", "lookahead", "motion", "rd_adopt", "rd_promote",
+         "loopfilter", "finalize"),
+        plain=None, check=mesh4_check(seen), setup=mesh4_spy(seen),
+        attrs={"use_tpu_residual": False})
+    refused_after = mesh4_refusal(frames[:4])
+    del frames
+    emit("mesh_paths", card=card, device_residual_refused_after=refused_after,
+         launches={k: launches_by_path[k] for k in (
+             "encode_1080p_medium_cpu_residual", "encode_1080p_medium_mesh4")},
+         **{k: PATH_NUMBERS[k] for k in (
+             "encode_1080p_medium", "encode_1080p_medium_cpu_residual",
+             "encode_1080p_medium_mesh4")})
 
     # ---- the stream-structure paths at 1080p: the live encode with the
     # robustness options (8 frames of the live clip, its picture 2 a copy

@@ -382,3 +382,72 @@ def test_batched_pair_costs_on_the_card_equals_the_cpu():
     assert all(a is b for a, b in zip(again, got))
     assert cuda_mc.launches["sad_sweep_argmin"] == (
         before["sad_sweep_argmin"] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4, 8])
+def test_tiles_on_the_card_equal_the_cpu_tiles(n):
+    """parallel/tiles on n tiles of the card: the band step (kernel 5 a
+    band) equals the same mesh on the CPU, the min-SAD exactly (and the
+    whole-frame plain sweep), the intra costs within 1e-4 relative; the
+    mesh's intra decisions and motion search equal the unsharded ones on
+    the card."""
+    dev = _dev()
+    from x265_tpu_torch.engine import me
+    from x265_tpu_torch.models.intra_frame import (
+        decide_intra_frame_tpu_with_cost)
+    from x265_tpu_torch.parallel.tiles import (make_tile_mesh,
+                                               mesh_intra_decisions,
+                                               sharded_frame_analysis)
+    from x265_tpu_torch.utils.testclip import make_clip
+    gpu = make_tile_mesh(n, devices=[dev] * n)
+    cpu = make_tile_mesh(n, devices=["cpu"] * n)
+    H, W = 32 * n, 192
+    rng = np.random.default_rng(n)
+    y = rng.integers(0, 256, (H, W)).astype(np.int32)
+    ref = np.concatenate([np.repeat(y[:1], 5, axis=0), y[:-5]])
+    before = cuda_mc.launches["sad_sweep_argmin"]
+    got = sharded_frame_analysis(gpu, y, ref)
+    assert cuda_mc.launches["sad_sweep_argmin"] == before + n
+    want = sharded_frame_analysis(cpu, y, ref)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[2].cpu(), want[2])
+    assert int(got[2][:-1].max()) == 0
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].numpy(),
+                               rtol=1e-4)
+    cur = T(y.astype(np.int16)).to(dev)
+    ref_pad = T(np.pad(ref, 8, mode="edge").astype(np.int16)).to(dev)
+    zero = torch.zeros((17 * 17,), dtype=torch.float32, device=dev)
+    _, whole = cuda_kernels.sad_sweep_argmin_plain(cur, ref_pad, zero, 16, 8)
+    assert torch.equal(got[2], whole.to(torch.int32))
+    frames = make_clip(W, H, 3, seed=n)
+    dec, icost = mesh_intra_decisions(gpu, frames[1][0], W, H)
+    one, icost1 = decide_intra_frame_tpu_with_cost(frames[1][0], W, H,
+                                                   device=dev)
+    assert np.array_equal(dec.luma_mode8, one.luma_mode8)
+    assert np.array_equal(icost, icost1)
+    kw = dict(S=16, R=57, qp=30, do_bi=True)
+    refs = [frames[0][0], frames[2][0]]
+    for a, b in zip(me.motion_fused(frames[1][0], refs, W, H, mesh=gpu,
+                                    device=dev, **kw),
+                    me.motion_fused(frames[1][0], refs, W, H, device=dev,
+                                    **kw)):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_sweep_at_the_band_shape_equals_plain_on_the_card():
+    """Kernel 5's fused entry at _band_step's 1080p band (4 tiles: cur
+    [272,1920], ref_pad [288,1936], S=16, R=8, zero mv cost) == its plain
+    version, on 8- and 10-bit samples."""
+    dev = _dev()
+    rng = np.random.default_rng(272)
+    for maxv in (255, 1023):
+        ref = T(rng.integers(0, maxv + 1, (288, 1936)).astype(np.int16)
+                ).to(dev)
+        cur = ref[3:275, 10:1930].contiguous()
+        zero = torch.zeros((17 * 17,), dtype=torch.float32, device=dev)
+        gi, gc = cuda_kernels.sad_sweep_argmin(cur, ref, zero, 16, 8)
+        wi, wc = cuda_kernels.sad_sweep_argmin_plain(cur, ref, zero, 16, 8)
+        assert torch.equal(gi, wi) and torch.equal(gc, wc)
+        assert float(gc.max()) == 0.0

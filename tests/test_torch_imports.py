@@ -32,6 +32,8 @@ def _sources():
 def test_sources_never_import_jax_or_the_jax_package():
     srcs = _sources()
     assert len(srcs) > 40
+    assert {os.path.join(PKG, "parallel", f) for f in
+            ("__init__.py", "mesh.py", "tiles.py")} <= set(srcs)
     for path in srcs:
         text = open(path, encoding="utf-8").read()
         assert not _BAD.search(text), path
@@ -79,7 +81,8 @@ def test_importing_every_module_loads_neither():
         "assert 'triton' not in sys.modules\n"
         "new = ['x265_tpu_torch.api.analysis_io', 'x265_tpu_torch.api.ladder',"
         " 'x265_tpu_torch.io.scaler', 'x265_tpu_torch.io.reconplay',"
-        " 'x265_tpu_torch.utils.checks', 'x265_tpu_torch.decoder.de265']\n"
+        " 'x265_tpu_torch.utils.checks', 'x265_tpu_torch.decoder.de265',"
+        " 'x265_tpu_torch.parallel.mesh', 'x265_tpu_torch.parallel.tiles']\n"
         "assert all(n in names and n in sys.modules for n in new), new\n"
         "print(len(names))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -136,7 +136,9 @@ def golden_encoders(name, tmpdir=None, setup=None):
     takes the case's fixture files (testclip.golden_params); each package
     writes its own (the pass-1 or analysis-save encode of a case runs on
     the package whose stream it feeds). setup, when given, is called with
-    the port's encoder before it encodes (to attach spies)."""
+    the port's encoder before it encodes (to attach spies). A GOLDEN_MESH
+    case runs under a mesh in each package: the port's tiles on the CPU,
+    the JAX package's on tests/conftest.py's virtual devices."""
     from x265_tpu.api import params as JP
     from x265_tpu.api.encoder import Encoder as JEncoder
     from x265_tpu_torch.api import params as TP
@@ -150,10 +152,16 @@ def golden_encoders(name, tmpdir=None, setup=None):
     recons = recon_collector(enc)
     if setup is not None:
         setup(enc)
-    stream, qp_maps = testclip.golden_stream(enc, name, frames)
+    stream, qp_maps = testclip.golden_stream(
+        enc, name, frames, mesh=testclip.golden_mesh(name, "cpu"))
+    jmesh = None
+    if name in testclip.GOLDEN_MESH:
+        from x265_tpu.parallel.tiles import make_tile_mesh
+        jmesh = make_tile_mesh(testclip.GOLDEN_MESH[name])
     jenc = count_reencodes(JEncoder(testclip.golden_params(
         name, JP, tmpdir, encoder=JEncoder)))
-    ref, ref_qp_maps = testclip.golden_stream(jenc, name, frames)
+    ref, ref_qp_maps = testclip.golden_stream(jenc, name, frames,
+                                              mesh=jmesh)
     gold = testclip.golden_digests()[name]
     assert gold == {"sha256": hashlib.sha256(ref).hexdigest(),
                     "bytes": len(ref), "qp_maps": ref_qp_maps}, \

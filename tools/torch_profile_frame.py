@@ -3,7 +3,8 @@
 all-intra path) of the PyTorch/CUDA port spends its time.
 
     python3 tools/torch_profile_frame.py
-        [--config ultrafast|filtered|live|medium|slow|lossless|main10|slices]
+        [--config ultrafast|filtered|live|medium|slow|lossless|main10|slices
+                  |medium_mesh4]
         [--frames N] [--out trace.json]
 
 Needs a CUDA device. Encodes a seeded clip in one of the configurations
@@ -15,13 +16,17 @@ scene; x265's default medium at 4000 kbps ABR, bench.py's config 3, on
 its clip_crowd1080; the slow preset under the same rate control; config
 3 in four slices a picture with transform skip (slices: SAO's second pass
 recomputes every TB, as transform skip demands, in place of replaying
-the first pass's levels); at
+the first pass's levels); config 3 without the device residual twice,
+unsharded and then under a mesh of four tiles on the one card
+(medium_mesh4: Encoder.attach_mesh, the intra analysis and the motion
+search in CTU-row bands), each traced as medium is, one JSON object
+each under "unsharded" and "mesh4"; at
 1280x720 bench.py's config 1, all-intra lossless on its pan; at
 3840x2160 BASELINE config 4, the slow preset at Main10 with scaling
 lists and the HDR10/HDR10+ metadata on the crowd clip lifted to 10
 bits), lets the
 first frames warm everything up, then traces with torch.profiler the
-LAST P frame or, for medium, slow, main10 and slices, the second
+LAST P frame or, for medium, slow, main10, slices and medium_mesh4, the second
 mini-GOP: the flush_step call that codes one P anchor and the B pictures
 before it (frames default 6, and 11 for those four: the I picture and
 ten
@@ -65,7 +70,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config",
                     choices=("ultrafast", "filtered", "live", "medium",
-                             "slow", "lossless", "main10", "slices"),
+                             "slow", "lossless", "main10", "slices",
+                             "medium_mesh4"),
                     default="ultrafast")
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--out", default=None)
@@ -73,7 +79,8 @@ def main():
     card = chip_smoke.smi()
     W, H = chip_smoke.W, chip_smoke.H
     n = args.frames or {"medium": 11, "slow": 11, "main10": 11,
-                        "slices": 11, "lossless": 8}.get(args.config, 6)
+                        "slices": 11, "lossless": 8,
+                        "medium_mesh4": 11}.get(args.config, 6)
     tmp = tempfile.TemporaryDirectory()          # the HDR10+ metadata
     if args.config == "filtered":
         frames = chip_smoke.make_ramp_clip(W, H, n, seed=11,
@@ -102,17 +109,42 @@ def main():
         frames = list(chip_smoke.clip_pan(W, H, n, seed=10))
         Encoder(chip_smoke.lossless_params(W, H)).encode(frames)
         enc = Encoder(chip_smoke.lossless_params(W, H))
+    elif args.config == "medium_mesh4":
+        from x265_tpu_torch.parallel.tiles import make_tile_mesh
+        frames = list(chip_smoke.clip_crowd1080(W, H, n, seed=40))
+        out = {}
+        for label, mesh in (("unsharded", None), ("mesh4", make_tile_mesh(
+                4, devices=[torch.device("cuda")] * 4))):
+            enc = Encoder(chip_smoke.medium_params(W, H))
+            enc.use_tpu_residual = False
+            if mesh is not None:
+                enc.attach_mesh(mesh)
+            out[label] = profile(enc, frames, args.config, card,
+                                 args.out if mesh is not None else None)
+            out[label]["frame_size"] = [W, H]
+        print(json.dumps(out, indent=1))
+        return
     else:
         frames = chip_smoke.make_clip(W, H, n, seed=11)
         enc = Encoder(chip_smoke.slice_params(W, H))
+    out = profile(enc, frames, args.config, card, args.out)
+    out["frame_size"] = [W, H]
+    tmp.cleanup()
+    print(json.dumps(out, indent=1))
+
+
+def profile(enc, frames, config, card, trace_out):
+    """Warm enc up on frames, trace its next step (see the module's
+    docstring) and return the numbers; trace_out: the Chrome trace's
+    path, or None."""
     cuda_build.get_lib()            # the build is no part of the warm-up
     profiling.reset()
-    profiling.set_sync(args.config != "lossless")
+    profiling.set_sync(config != "lossless")
     cuda_mc.reset_launches()
     t_warm = time.perf_counter()
-    if args.config == "lossless":
+    if config == "lossless":
         step = lambda: enc.encode(frames)  # noqa: E731
-    elif args.config in ("medium", "slow", "main10", "slices"):
+    elif config in ("medium", "slow", "main10", "slices", "medium_mesh4"):
         enc.headers()
         # the I picture codes at once, the rest queue (b-adapt's window is
         # rc-lookahead frames); the first mini-GOP warms up the B path
@@ -160,7 +192,7 @@ def main():
     stage_ms = {k: v["seconds"] * 1e3
                 for k, v in profiling.report().items()}
     out = {
-        "card": card, "config": args.config, "frame_bytes": len(au),
+        "card": card, "config": config, "frame_bytes": len(au),
         "frame_type": "".join(st["type"] for st in enc.frame_stats[done:]),
         "frame_pocs": [st["poc"] for st in enc.frame_stats[done:]],
         "frame_wall_ms": wall * 1e3, "stage_ms": stage_ms,
@@ -182,13 +214,11 @@ def main():
         })
     else:
         out["device_busy_ms"] = "not measured (the profiler saw no kernels)"
-    out["frame_size"] = [W, H]
-    tmp.cleanup()
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+    if trace_out:
+        os.makedirs(os.path.dirname(os.path.abspath(trace_out)),
                     exist_ok=True)
-        prof.export_chrome_trace(args.out)
-    print(json.dumps(out, indent=1))
+        prof.export_chrome_trace(trace_out)
+    return out
 
 
 if __name__ == "__main__":

@@ -376,6 +376,9 @@ class Encoder:
         self.use_tpu_analysis = True
         self.use_native = True
         self.use_tpu_residual = True
+        # optional device mesh: analysis shards over CTU-row bands
+        # (attach_mesh)
+        self.mesh = None
         from x265_tpu_torch.engine.lookahead import Lookahead
         from x265_tpu_torch.engine.ratecontrol import RateControl
         self.rc = RateControl(p)
@@ -1222,6 +1225,11 @@ class Encoder:
     def _intra_decisions(self, y) -> FrameDecisions:
         p = self.param
         cu_log2 = 4 if p.ctb_log2 >= 4 else p.ctb_log2
+        if self.mesh is not None:
+            from x265_tpu_torch.parallel.tiles import mesh_intra_decisions
+            return mesh_intra_decisions(self.mesh, y, p.width, p.height,
+                                        cu_log2, p.fast_intra,
+                                        psy=float(p.psy_rd))[0]
         if self.use_tpu_analysis:
             from x265_tpu_torch.models.intra_frame import (
                 decide_intra_frame_tpu)
@@ -1559,7 +1567,8 @@ class Encoder:
                     (np.asarray(y), np.asarray(cb), np.asarray(cr)),
                     decisions, refs_padded, sh.qp, p, wp_native,
                     self.pps.sign_data_hiding, p.rdoq_level,
-                    slice_type=slice_type, device=self.device)
+                    mesh=self.mesh, slice_type=slice_type,
+                    device=self.device)
             if pre is not None:
                 # the writer and the deblock edge maps consume the
                 # device's RQT choice (one source of truth)
@@ -1968,7 +1977,7 @@ class Encoder:
             return dir_blk, mv_blk, ref_blk, satd_now
         sc = tuple_satd(y, refs0, refs1, cands, p.width, p.height,
                         R=p.me_range, bit_depth=p.bit_depth,
-                        device=self.device)
+                        mesh=self.mesh, device=self.device)
         k = np.argmin(sc, axis=0)
         s_c = np.take_along_axis(sc, k[None], 0)[0].astype(np.float32)
         lam = max(float(lam), 1e-3)
@@ -2061,7 +2070,7 @@ class Encoder:
                         rd_ctx[0], rd_ctx[1], rd_ctx[2], cand, mv4,
                         d[ys, xs, 0], r[ys, xs, 0], int(qp), p,
                         mv_bias=bias_mv, bias_dir=bias_dir,
-                        device=self.device)
+                        mesh=self.mesh, device=self.device)
                     keep = np.zeros_like(elig)
                     keep[ys, xs] = promote
                     ok_inter = keep
@@ -2161,7 +2170,8 @@ class Encoder:
                 promote, mv_uni = rd_promote(
                     rd_ctx[0], rd_ctx[1], rd_ctx[2], cand, mv4,
                     d[ys, xs, 0], r[ys, xs, 0], int(qp), p, n=64,
-                    mv_bias=bias_mv, bias_dir=bias_dir, device=self.device)
+                    mv_bias=bias_mv, bias_dir=bias_dir, mesh=self.mesh,
+                    device=self.device)
                 pys, pxs = ys[promote], xs[promote]
                 for (gy, gx, m_) in zip(pys, pxs, mv_uni[promote]):
                     dec.mv8[gy * 8:gy * 8 + 8, gx * 8:gx * 8 + 8] = m_
@@ -2177,6 +2187,26 @@ class Encoder:
         up = np.repeat(np.repeat(ok, 8, 0), 8, 1)
         dec.cu_log2_map[:h64 * 8, :w64 * 8][up] = 6
 
+
+    def attach_mesh(self, mesh) -> None:
+        """Shard the frame analysis over a parallel.mesh.Mesh's `tile`
+        axis: the intra analysis (parallel/tiles.mesh_intra_decisions) and
+        the motion search's per-block stages (engine/me.motion_fused,
+        tuple_satd) run in CTU-row bands on the tiles; the rest of the
+        encode stays on the encoder's device, which must be the mesh's
+        first. Streams are byte-identical to the single-device encoder's.
+        As in the JAX package, the leaf-B batch and the RD passes run
+        unsharded, the pipelined keyint-1 path of encode() does not read
+        the mesh, and the device residual raises under a mesh
+        (models/inter_residual.build_inter_pre): set use_tpu_residual =
+        False (or encode under noise reduction) to encode P and B
+        pictures."""
+        from x265_tpu_torch.parallel.mesh import device_key
+        first = mesh.devices.flat[0]
+        if device_key(first) != device_key(self.device):
+            raise ValueError(f"the mesh's first device {first} is not the "
+                             f"encoder's device {self.device}")
+        self.mesh = mesh
 
     @staticmethod
     def _to8(grid, h8, w8, rep):
@@ -2231,12 +2261,17 @@ class Encoder:
         return icost.cpu().numpy().reshape(ph // S, pw // S)
 
     def _intra_analysis_with_cost(self, y):
+        p = self.param
+        cu_log2 = 4 if p.ctb_log2 >= 4 else p.ctb_log2
+        if self.mesh is not None:
+            from x265_tpu_torch.parallel.tiles import mesh_intra_decisions
+            return mesh_intra_decisions(self.mesh, y, p.width, p.height,
+                                        cu_log2, p.fast_intra,
+                                        psy=float(p.psy_rd))
         if not self.use_tpu_analysis:
             return self._intra_decisions(y), self._intra_cost_grid(y)
         from x265_tpu_torch.models.intra_frame import (
             decide_intra_frame_tpu_with_cost)
-        p = self.param
-        cu_log2 = 4 if p.ctb_log2 >= 4 else p.ctb_log2
         return decide_intra_frame_tpu_with_cost(
             np.asarray(y), p.width, p.height, cu_log2=cu_log2,
             fast=p.fast_intra, psy=float(p.psy_rd), device=self.device)
@@ -2274,7 +2309,7 @@ class Encoder:
                 bit_depth=p.bit_depth,
                 slack=48.0 if p.early_skip else 24.0,
                 force_dense=p.me_method in ("full", "star", "sea"),
-                device=self.device)
+                mesh=self.mesh, device=self.device)
         cost = cost + lam * 2.0 * np.arange(len(ref_ys),
                                             dtype=np.float32)[:, None, None]
         best_ref = np.argmin(cost, axis=0).astype(np.int32)
@@ -2311,7 +2346,8 @@ class Encoder:
                 with scope("rd_adopt"):
                     dir_blk, mv2, best_ref, _ad = rd_adopt16(
                         frame, rd_refs, [], inter_blk, mv2, dir_blk,
-                        best_ref, cands, qpv, p, device=self.device)
+                        best_ref, cands, qpv, p, mesh=self.mesh,
+                        device=self.device)
         elif p.rd_level >= 2:
             bits_now = ((best_cost - satd16) / max(lam, 1e-3) + 4.0)
             dir_blk, mv2, best_ref, satd16 = self._adopt_coherent(
@@ -2377,7 +2413,7 @@ class Encoder:
                 bit_depth=p.bit_depth, do_bi=True,
                 slack=48.0 if p.early_skip else 24.0,
                 force_dense=p.me_method in ("full", "star", "sea"),
-                device=self.device)
+                mesh=self.mesh, device=self.device)
         return self._b_select(dec, icost, mv, cost, bi_satd, lam,
                               satd=satd, y=np.asarray(y),
                               refs=(r0e, r1e),
@@ -2429,7 +2465,7 @@ class Encoder:
                     dir_blk, mv2, _rb, _ad = rd_adopt16(
                         frame, pads[0], pads[1], inter_blk, mv2, dir_blk,
                         ref_blk, cands, qp if qp is not None else 32, p,
-                        device=self.device)
+                        mesh=self.mesh, device=self.device)
         elif (p.rd_level >= 2 and satd is not None and y is not None
                 and refs is not None):
             satd_now = np.where(

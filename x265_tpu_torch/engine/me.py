@@ -35,6 +35,7 @@ from x265_tpu_torch.ops.cuda_kernels import satd as _satd_kernel
 from x265_tpu_torch.ops.cuda_mc import (tile_gather_planes,
                                         tile_gather_planes_satd)
 from x265_tpu_torch.ops.ref.interp import LUMA_FILTERS
+from x265_tpu_torch.parallel import mesh as _mesh
 from x265_tpu_torch.utils.device import resolve_device
 
 
@@ -523,14 +524,58 @@ def _to_blocks(plane, nby, nbx, S):
             .reshape(nby * nbx, S, S).contiguous())
 
 
+class _Band:
+    """One tile's block rows [by0, by1) of a frame's search: its rows of
+    the current frame, their blocks and block indices, and the replicated
+    references on its device. The lanes of a band are the frame's lanes
+    by0*nbx .. by1*nbx (row-major blocks)."""
+
+    def __init__(self, device, by0, by1, cur, refs_big, S, nbx):
+        self.dev = device
+        self.by0, self.by1 = by0, by1
+        self.lanes = slice(by0 * nbx, by1 * nbx)
+        self.cur = cur[by0 * S:by1 * S].to(device)
+        self.blocks = _to_blocks(self.cur, by1 - by0, nbx, S)
+        self.bxy = _block_grid(by1 - by0, nbx, device)
+        if by0:
+            self.bxy[:, 1] += by0          # absolute block rows
+        self.refs = refs_big
+
+    def on(self, t):
+        return t.to(self.dev)
+
+    def take(self, t):
+        """This band's lanes of a frame's lane tensor, on its device."""
+        return t[self.lanes].to(self.dev)
+
+
+def _gather(parts, dev):
+    """The bands' results, in band order, on the frame's device."""
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([p.to(dev) for p in parts])
+
+
 def _motion_fused(cur, refs_big, lam, S, R, subme, bd, do_bi,
-                  slack=24.0, force_dense=False):
+                  slack=24.0, force_dense=False, tiles=None):
     """cur [H,W] (padded to S multiples); refs_big [nref, H+2P, W+2P]
-    edge-padded by P = R+6. Returns (mv [nref,nby,nbx,2] qpel,
+    edge-padded by P = R+6 (or, under a mesh, {device: that stack} with
+    one copy a device of the tiles). Returns (mv [nref,nby,nbx,2] qpel,
     cost [nref,nby,nbx] satd+lam*mvpbits, satd [nref,nby,nbx],
     bi_satd [nby,nbx] (zeros unless do_bi: then the SATD of the average
-    of the first two references' predictions))."""
-    nref = refs_big.shape[0]
+    of the first two references' predictions)).
+
+    tiles: [(device, by0, by1)] block-row bands (a mesh's tiles,
+    me._mesh_tiles) or None for one band of the whole frame on cur's
+    device. The per-block stages run band by band on their tile's
+    device (kernel 5's sweeps, kernel 3's refine and eval lanes, kernel
+    4's bi-prediction SATD); the steps that read across blocks (the
+    median predictor, the 2x2 modal smoothing) run on the gathered field
+    on cur's device. The results do not depend on the bands."""
+    dev = cur.device
+    if not isinstance(refs_big, dict):
+        refs_big = {_mesh.device_key(dev): refs_big}
+    nref = refs_big[_mesh.device_key(dev)].shape[0]
     if do_bi and nref < 2:
         raise ValueError("the bi-prediction search needs two references")
     H, W = cur.shape
@@ -538,12 +583,11 @@ def _motion_fused(cur, refs_big, lam, S, R, subme, bd, do_bi,
     N = nby * nbx
     P = R + 6
     margin = R + 2
-    dev = cur.device
     cur = cur.to(torch.int32)
     maxv = (1 << bd) - 1
     lam = torch.as_tensor(lam, dtype=torch.float32, device=dev)
-    bxy = _block_grid(nby, nbx, dev)
-    cur_blocks = _to_blocks(cur, nby, nbx, S)
+    bands = [_Band(d, b0, b1, cur, refs_big[_mesh.device_key(d)], S, nbx)
+             for d, b0, b1 in (tiles or [(dev, 0, nby)])]
 
     # --- stage 1: integer search (dense <=24, else 2-level HME;
     # --me full forces the dense sweep at any range) ---
@@ -554,8 +598,10 @@ def _motion_fused(cur, refs_big, lam, S, R, subme, bd, do_bi,
             (_mv_bits(4 * dxs.ravel()) + _mv_bits(4 * dys.ravel()))
             .astype(np.float32)).to(dev)
         for r in range(nref):
-            ref_R = refs_big[r, P - R:P + H + R, P - R:P + W + R]
-            mv_int.append(_int_stage(cur, ref_R, lam * mvcost, S, R))
+            mv_int.append(_gather([_int_stage(
+                b.cur, b.refs[r, P - R + b.by0 * S:P + b.by1 * S + R,
+                              P - R:P + W + R],
+                b.on(lam * mvcost), S, R) for b in bands], dev))
     else:
         from x265_tpu_torch.engine.planes import pad_dev
         R2 = (R + 1) // 2
@@ -564,18 +610,25 @@ def _motion_fused(cur, refs_big, lam, S, R, subme, bd, do_bi,
         mvcost2 = torch.from_numpy(
             (_mv_bits(8 * dxs.ravel()) + _mv_bits(8 * dys.ravel()))
             .astype(np.float32)).to(dev)
-        cur_l = _downscale2(cur)
         W_r = 7
+        cur_l = [_downscale2(b.cur) for b in bands]
         for r in range(nref):
-            rb = refs_big[r]
-            ref_l = _downscale2(rb[P:P + H, P:P + W])
-            mvh = _int_stage(cur_l, pad_dev(ref_l, (R2, R2, R2, R2)),
-                             lam * mvcost2, S2, R2)
-            centers = (mvh * 2).clamp(-(R - W_r), R - W_r).reshape(-1, 2)
-            ref_R = rb[P - R:P + H + R, P - R:P + W + R]
-            mv_loc, _ = _local_search(cur_blocks, ref_R, centers, bxy,
-                                      lam, S, W_r, R)
-            mv_int.append(mv_loc.reshape(nby, nbx, 2))
+            ref_l = _PerDevice()   # the padded half-size reference
+            parts = []
+            for b, cl in zip(bands, cur_l):
+                rb = b.refs[r]
+                if b.dev not in ref_l:
+                    ref_l[b.dev] = pad_dev(_downscale2(rb[P:P + H, P:P + W]),
+                                           (R2, R2, R2, R2))
+                mvh = _int_stage(
+                    cl, ref_l[b.dev][b.by0 * S2:b.by1 * S2 + 2 * R2],
+                    b.on(lam * mvcost2), S2, R2)
+                centers = (mvh * 2).clamp(-(R - W_r), R - W_r).reshape(-1, 2)
+                ref_R = rb[P - R:P + H + R, P - R:P + W + R]
+                mv_loc, _ = _local_search(b.blocks, ref_R, centers, b.bxy,
+                                          b.on(lam), S, W_r, R)
+                parts.append(mv_loc)
+            mv_int.append(_gather(parts, dev).reshape(nby, nbx, 2))
 
     # --- stage 2: phase planes + subpel/MVP/smoothing per ref ---
     rounds = [torch.from_numpy(r).to(dev) for r in subpel_rounds(subme)]
@@ -584,14 +637,20 @@ def _motion_fused(cur, refs_big, lam, S, R, subme, bd, do_bi,
         # MVP from the integer-search field directly
         best = mv0.reshape(N, 2) * 4
         mvp = _median3x3_dev(mv0 * 4).reshape(N, 2)
-        for offs in rounds:
-            best, _ = _refine(cur_blocks, planes_r,
-                              torch.cat([best, bxy], dim=1),
-                              offs, lam, mvp, S, margin)
+
+        def band_rounds(b):
+            planes, p, bb = planes_r[b.dev], b.take(mvp), b.take(best)
+            for offs in rounds:
+                bb, _ = _refine(b.blocks, planes,
+                                torch.cat([bb, b.bxy], dim=1),
+                                b.on(offs), b.on(lam), p, S, margin)
+            return (bb, _eval_fixed(b.blocks, planes, p, b.bxy, S, margin),
+                    _eval_fixed(b.blocks, planes, bb, b.bxy, S, margin))
+        outs = [band_rounds(b) for b in bands]
+        best, satd_mvp, satd_cur = (_gather([o[k] for o in outs], dev)
+                                    for k in range(3))
         # snap-to-predictor: taking the predictor exactly when its SATD
         # is within the saved bits lets the writer's merge detection fire
-        satd_mvp = _eval_fixed(cur_blocks, planes_r, mvp, bxy, S, margin)
-        satd_cur = _eval_fixed(cur_blocks, planes_r, best, bxy, S, margin)
         bits_now = _mv_bits_t((best - mvp).abs()).sum(dim=1)
         snap = (satd_mvp.to(torch.float32)
                 <= satd_cur.to(torch.float32) + lam * (bits_now + 6.0))
@@ -612,10 +671,13 @@ def _motion_fused(cur, refs_big, lam, S, R, subme, bd, do_bi,
         cand = modal.repeat_interleave(2, 0).repeat_interleave(2, 1)
         full = mvf.clone()
         full[:gy * 2, :gx * 2] = cand
-        satd_mode = _eval_fixed(cur_blocks, planes_r,
-                                full.reshape(N, 2), bxy, S, margin)
-        satd_best = _eval_fixed(cur_blocks, planes_r,
-                                mvf.reshape(N, 2), bxy, S, margin)
+        full_l = full.reshape(N, 2)
+        outs = [(_eval_fixed(b.blocks, planes_r[b.dev], b.take(full_l),
+                             b.bxy, S, margin),
+                 _eval_fixed(b.blocks, planes_r[b.dev], b.take(best),
+                             b.bxy, S, margin)) for b in bands]
+        satd_mode, satd_best = (_gather([o[k] for o in outs], dev)
+                                for k in range(2))
         dsum = (satd_mode - satd_best).reshape(nby, nbx)
         dsum = dsum[:gy * 2, :gx * 2].reshape(gy, 2, gx, 2).sum(
             dim=(1, 3), dtype=torch.int32)
@@ -631,9 +693,12 @@ def _motion_fused(cur, refs_big, lam, S, R, subme, bd, do_bi,
 
     mvs, costs, satds, planes = [], [], [], []
     for r in range(nref):
-        ref_S = refs_big[r, P - margin - 3:P + H + margin + 4,
-                         P - margin - 3:P + W + margin + 4]
-        planes_r = _phase_planes(ref_S, maxv)
+        planes_r = _PerDevice()    # the phase planes, one set a device
+        for b in bands:
+            if b.dev not in planes_r:
+                planes_r[b.dev] = _phase_planes(
+                    b.refs[r, P - margin - 3:P + H + margin + 4,
+                           P - margin - 3:P + W + margin + 4], maxv)
         m, c, s = refine_ref(planes_r, mv_int[r])
         mvs.append(m)
         costs.append(c)
@@ -641,12 +706,54 @@ def _motion_fused(cur, refs_big, lam, S, R, subme, bd, do_bi,
         if do_bi and r < 2:
             planes.append(planes_r)
     if do_bi:
-        bi = _bi_satd(cur_blocks, planes[0], planes[1],
-                      mvs[0].reshape(N, 2), mvs[1].reshape(N, 2), bxy, S,
-                      margin).reshape(nby, nbx)
+        mv0, mv1 = mvs[0].reshape(N, 2), mvs[1].reshape(N, 2)
+        bi = _gather([_bi_satd(b.blocks, planes[0][b.dev], planes[1][b.dev],
+                               b.take(mv0), b.take(mv1), b.bxy, S, margin)
+                      for b in bands], dev).reshape(nby, nbx)
     else:
         bi = torch.zeros((nby, nbx), dtype=torch.int32, device=dev)
     return torch.stack(mvs), torch.stack(costs), torch.stack(satds), bi
+
+
+class _PerDevice(dict):
+    """A dict keyed by device, whatever name the device is given by."""
+
+    def __getitem__(self, d):
+        return super().__getitem__(_mesh.device_key(d))
+
+    def __setitem__(self, d, v):
+        super().__setitem__(_mesh.device_key(d), v)
+
+    def __contains__(self, d):
+        return super().__contains__(_mesh.device_key(d))
+
+
+def _mesh_tiles(mesh, nby):
+    """The block-row bands [(device, by0, by1)] of a frame of nby block
+    rows over the mesh's tiles, or None (one band, unsharded) without a
+    mesh or when nby does not divide by the tile count: the JAX package's
+    _mesh_put shards the current frame only when its padded height
+    divides by S * n_tiles."""
+    if mesh is None:
+        return None
+    devs = list(mesh.devices.flat)
+    n = len(devs)
+    if nby % n:
+        return None
+    k = nby // n
+    return [(d, i * k, (i + 1) * k) for i, d in enumerate(devs)]
+
+
+def _mesh_refs(ref_ys, P, ph, pw, height, width, device, tiles):
+    """The search-layout references on every device of the bands (the
+    JAX package's replicated upload): {device: [nref, ...] stack}; on a
+    mesh that names one card several times, one stack."""
+    refs = _PerDevice()
+    for d in [device] + [t[0] for t in (tiles or ())]:
+        if d not in refs:
+            refs[d] = torch.stack([_me_ref_upload(r, P, ph, pw, height,
+                                                  width, d) for r in ref_ys])
+    return refs
 
 
 def _cur_upload(cur_y, bit_depth, ph, pw, device):
@@ -662,24 +769,28 @@ def _cur_upload(cur_y, bit_depth, ph, pw, device):
 
 def motion_fused(cur_y, ref_ys, width, height, S=16, R=57, qp=32,
                  subme=2, bit_depth=8, do_bi=False, slack=24.0,
-                 force_dense=False, device=None):
+                 force_dense=False, mesh=None, device=None):
     """Host wrapper: all refs' motion search for one frame.
 
     cur_y [H,W]; ref_ys: list of reference luma planes (numpy) or
-    device handles (FramePlanes/MELuma).
+    device handles (FramePlanes/MELuma). mesh: a parallel.mesh.Mesh
+    whose tiles take the frame's block rows in bands (when the padded
+    height divides by S * n_tiles; else the call runs unsharded), with
+    the references replicated on each tile's device; the results are
+    those of mesh=None, gathered on `device`.
     Returns numpy (mv [nref,nby,nbx,2], cost [nref,nby,nbx], satd, bi).
     """
     device = resolve_device(device)
     ph = -(-height // S) * S
     pw = -(-width // S) * S
     P = R + 6
-    refs = torch.stack([_me_ref_upload(r, P, ph, pw, height, width, device)
-                        for r in ref_ys])
+    tiles = _mesh_tiles(mesh, ph // S)
+    refs = _mesh_refs(ref_ys, P, ph, pw, height, width, device, tiles)
     cur = _cur_upload(cur_y, bit_depth, ph, pw, device)
     lam = np.float32(np.sqrt(0.85 * 2.0 ** ((qp - 12) / 3.0)))
     mv, cost, satd, bi = _motion_fused(
         cur, refs, lam, S, R, max(1, subme), bit_depth, do_bi,
-        float(slack), bool(force_dense))
+        float(slack), bool(force_dense), tiles)
     return (mv.cpu().numpy(), cost.cpu().numpy(), satd.cpu().numpy(),
             bi.cpu().numpy())
 
@@ -721,12 +832,18 @@ def motion_fused_frames(cur_list, ref_ys, width, height, S=16, R=57,
 
 def _me_ref_upload(r, P, ph, pw, height, width, device):
     """Search-layout reference (int16): a device-resident handle pads ON
-    DEVICE (FramePlanes/MELuma.dev_luma_me); a host plane is uploaded
-    once per anchor (identity-keyed cache) and padded on the device."""
-    if hasattr(r, "dev_luma_me"):
-        return r.dev_luma_me(P, ph, pw)
+    DEVICE (FramePlanes/MELuma.dev_luma_me), and a copy of it on another
+    device (a mesh's tile) is cached as an upload is; a host plane is
+    uploaded once per anchor and device (identity-keyed cache) and padded
+    on the device."""
     from x265_tpu_torch.engine.planes import pad_dev
     from x265_tpu_torch.utils import devcache
+    if hasattr(r, "dev_luma_me"):
+        t = r.dev_luma_me(P, ph, pw)
+        if _mesh.device_key(t.device) == _mesh.device_key(device):
+            return t
+        return devcache.get_or(("me_ref", id(r), P, ph, pw, str(device)),
+                               r, lambda: t.to(device))
 
     def build():
         a = torch.from_numpy(np.ascontiguousarray(
@@ -744,16 +861,19 @@ def _me_ref_upload(r, P, ph, pw, height, width, device):
 # ---------------------------------------------------------------------------
 
 def _tuple_satd(cur, refs0_big, refs1_big, dirs, r0s, r1s, mv0s, mv1s,
-                S, P, K, bd):
+                S, P, K, bd, y0=0):
     """SATD of every SxS block under K fixed motion tuples.
 
-    cur [H,W]; refs{0,1}_big [nref, H+2P, W+2P] edge-padded by P (the
-    motion_fused upload layout); dirs (1/2/3), r0s/r1s list indices,
-    mv0s/mv1s quarter-pel pairs — host sequences of length K.
-    Returns [K, nby, nbx] int32.
+    cur [Hc,W]: rows y0 .. y0+Hc of a frame H rows tall (the whole frame,
+    or a mesh tile's band of it); refs{0,1}_big [nref, H+2P, W+2P]
+    edge-padded by P (the motion_fused upload layout); dirs (1/2/3),
+    r0s/r1s list indices, mv0s/mv1s quarter-pel pairs — host sequences
+    of length K. Returns [K, Hc/S, W/S] int32: the whole frame's SATDs of
+    these blocks.
     """
-    H, W = cur.shape
-    nby, nbx = H // S, W // S
+    Hc, W = cur.shape
+    H = refs0_big.shape[1] - 2 * P
+    nby, nbx = Hc // S, W // S
     cur_blocks = _to_blocks(cur.to(torch.int32), nby, nbx, S)
     f = LUMA_FILTERS                       # [4, 8] (tap 3 = base sample)
     maxv = (1 << bd) - 1
@@ -762,19 +882,24 @@ def _tuple_satd(cur, refs0_big, refs1_big, dirs, r0s, r1s, mv0s, mv1s,
         """Whole-frame 8-tap qpel prediction at one fixed MV."""
         nr, Hb, Wb = refs_big.shape
         r = min(max(int(r), 0), nr - 1)
-        ix = min(max(P + (mvx >> 2) - 3, 0), Wb - (W + 7))
-        iy = min(max(P + (mvy >> 2) - 3, 0), Hb - (H + 7))
-        win = refs_big[r, iy:iy + H + 7, ix:ix + W + 7].to(torch.int32)
+
+        def start(i, dim, size):
+            # lax.dynamic_slice: a negative start counts from the end,
+            # then the start is clamped into the plane
+            return min(max(i + dim if i < 0 else i, 0), dim - size)
+        ix = start(P + (mvx >> 2) - 3, Wb, W + 7)
+        iy = start(P + (mvy >> 2) - 3, Hb, H + 7) + y0
+        win = refs_big[r, iy:iy + Hc + 7, ix:ix + W + 7].to(torch.int32)
         fx = f[mvx & 3]
         fy = f[mvy & 3]
-        hor = torch.zeros((H + 7, W), dtype=torch.int32, device=cur.device)
+        hor = torch.zeros((Hc + 7, W), dtype=torch.int32, device=cur.device)
         for t in range(8):
             if int(fx[t]):
                 hor += int(fx[t]) * win[:, t:t + W]
-        out = torch.zeros((H, W), dtype=torch.int32, device=cur.device)
+        out = torch.zeros((Hc, W), dtype=torch.int32, device=cur.device)
         for t in range(8):
             if int(fy[t]):
-                out += int(fy[t]) * hor[t:t + H, :]
+                out += int(fy[t]) * hor[t:t + Hc, :]
         return ((out + 2048) >> 12).clamp_(0, maxv)
 
     preds = []
@@ -799,27 +924,35 @@ def _tuple_satd(cur, refs0_big, refs1_big, dirs, r0s, r1s, mv0s, mv1s,
 
 
 def tuple_satd(cur_y, ref0_ys, ref1_ys, cands, width, height, S=16,
-               R=57, bit_depth=8, device=None):
+               R=57, bit_depth=8, mesh=None, device=None):
     """Host wrapper for _tuple_satd: cands is a list of
     (dir, r0, r1, (mv0x, mv0y), (mv1x, mv1y)) tuples (any count).
-    Reference uploads hit the motion_fused device cache.
+    Reference uploads hit the motion_fused device cache. mesh: as
+    motion_fused's (block-row bands over the tiles, references
+    replicated; unsharded when the padded height does not divide by
+    S * n_tiles), with the results of mesh=None.
     Returns numpy satd [len(cands), nby, nbx]."""
     device = resolve_device(device)
     ph = -(-height // S) * S
     pw = -(-width // S) * S
     cur = _cur_upload(cur_y, bit_depth, ph, pw, device)
     P = R + 6
-    refs0 = torch.stack([_me_ref_upload(r, P, ph, pw, height, width, device)
-                         for r in ref0_ys])
-    refs1 = (torch.stack([_me_ref_upload(r, P, ph, pw, height, width,
-                                         device) for r in ref1_ys])
-             if ref1_ys else refs0[:1])
+    tiles = _mesh_tiles(mesh, ph // S) or [(device, 0, ph // S)]
+    refs0 = _mesh_refs(ref0_ys, P, ph, pw, height, width, device, tiles)
+    refs1 = (_mesh_refs(ref1_ys, P, ph, pw, height, width, device, tiles)
+             if ref1_ys else None)
     cands = list(cands)
-    out = _tuple_satd(cur, refs0, refs1,
-                      [c[0] for c in cands], [c[1] for c in cands],
-                      [c[2] for c in cands], [c[3] for c in cands],
-                      [c[4] for c in cands], S, P, len(cands), bit_depth)
-    return out.cpu().numpy()
+    outs = []
+    for d, by0, by1 in tiles:
+        r0 = refs0[d]
+        outs.append(_tuple_satd(
+            cur[by0 * S:by1 * S].to(d), r0,
+            refs1[d] if refs1 is not None else r0[:1],
+            [c[0] for c in cands], [c[1] for c in cands],
+            [c[2] for c in cands], [c[3] for c in cands],
+            [c[4] for c in cands], S, P, len(cands), bit_depth,
+            y0=by0 * S).cpu())
+    return torch.cat(outs, dim=1).numpy()
 
 
 def dominant_tuples(dir_blk, mv_blk, ref_blk, inter_blk, max_cands=4):

@@ -389,7 +389,7 @@ def _inter_multi_planes(src_y, src_cb, src_cr,
 
 
 def build_inter_pre(src, decisions, refs_padded, qp_slice, p, wp_native,
-                    sdh, rdoq_level, slice_type=1, device=None):
+                    sdh, rdoq_level, mesh=None, slice_type=1, device=None):
     """Assemble the precomputed-residual dict for the native writer.
 
     src: (y, cb, cr) numpy planes; decisions: FrameDecisions with
@@ -401,6 +401,13 @@ def build_inter_pre(src, decisions, refs_padded, qp_slice, p, wp_native,
     is nothing to precompute. Lanes are the true CU count of each size
     class: eager PyTorch has no compile to protect with a fixed batch
     shape, so there are no padding lanes and nothing to drop.
+
+    mesh (Encoder.attach_mesh): refused with NotImplementedError where
+    there is something to precompute. The JAX package's mesh branch
+    shards the CU lanes and fails while tracing _inter_multi
+    (TracerBoolConversionError), so there is no reference stream to
+    match; a mesh encode runs with use_tpu_residual = False or under
+    noise reduction, where this function is not called.
     """
     from x265_tpu_torch.engine.planes import FramePlanes
     from x265_tpu_torch.hevc.rate_model import slice_rate_consts
@@ -482,6 +489,13 @@ def build_inter_pre(src, decisions, refs_padded, qp_slice, p, wp_native,
                             put(ref_i), put(qp_cu))))
     if not any_pre:
         return None
+    if mesh is not None:
+        raise NotImplementedError(
+            "the device inter residual under a mesh: the JAX package's "
+            "mesh branch fails in _inter_multi "
+            "(x265_tpu/models/inter_residual.py, TracerBoolConversionError"
+            "), so it has no stream to match; encode with "
+            "Encoder.use_tpu_residual = False or under noise reduction")
     if wp_native is not None:
         wp_arr = put(np.asarray(wp_native[0], np.int32))
         wld, wcd = int(wp_native[1]), int(wp_native[2])

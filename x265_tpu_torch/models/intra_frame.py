@@ -50,16 +50,24 @@ def first_argmin(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.where(x == m, ar, n).amin(dim=dim)
 
 
-def extract_block_refs(y: torch.Tensor, S: int) -> torch.Tensor:
+def extract_block_refs(y: torch.Tensor, S: int,
+                       halo: bool = False) -> torch.Tensor:
     """Reference vectors [nB, 4S+1] for every SxS block of a padded frame.
 
     Edge-replication stands in for the spec's unavailable-sample
     substitution (decision-only approximation; the finalizer is exact).
     Layout matches ops.ref.intra: left bottom-up, corner, top.
+    With halo, y is a band of a frame that carries the row above its
+    blocks and the S rows below them (all a block reads there:
+    parallel/tiles.mesh_intra_decisions); only its columns are padded.
     """
     from x265_tpu_torch.engine.planes import pad_dev
     H, W = y.shape
-    yp = pad_dev(y, (1, 2 * S, 1, 2 * S))
+    if halo:
+        H -= 1 + S
+        yp = pad_dev(y, (0, 0, 1, 2 * S))
+    else:
+        yp = pad_dev(y, (1, 2 * S, 1, 2 * S))
     nby, nbx = H // S, W // S
     dev = y.device
     by = torch.arange(nby, device=dev) * S
@@ -98,9 +106,12 @@ def _fast_modes_dev(device: str) -> torch.Tensor:
 def frame_intra_analysis(y: torch.Tensor, S: int = 16,
                          lambda_bits: float = 2.0,
                          fast: bool = False,
-                         psy: float = 0.0):
+                         psy: float = 0.0, halo: bool = False):
     """y: [H, W] (multiples of S) integer/float tensor -> (best mode per
-    block [nB] int32, its cost [nB] float32).
+    block [nB] int32, its cost [nB] float32). With halo, y is
+    [1 + H + S, W]: the band's blocks with the rows extract_block_refs
+    reads above and below them, and the blocks' results are those of the
+    whole frame.
 
     psy > 0 adds the psychovisual energy term to every candidate: the
     AC-energy difference |E(source) - E(prediction)| weighted by psy-rd
@@ -109,7 +120,10 @@ def frame_intra_analysis(y: torch.Tensor, S: int = 16,
     H, W = y.shape
     dev = y.device
     yf = y.to(torch.float32)
-    refs = extract_block_refs(yf, S)                         # [nB, R]
+    refs = extract_block_refs(yf, S, halo)                   # [nB, R]
+    if halo:
+        H -= 1 + S
+        yf = yf[1:1 + H]
     Wm = _weights_dev(S, bool(fast), str(dev))               # [nm, S², R]
     nm = Wm.shape[0]
     nB = refs.shape[0]

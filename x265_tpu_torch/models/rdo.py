@@ -296,14 +296,15 @@ def _dev_f32(a, device):
 
 
 def rd_promote(src_yuv, refs0_padded, refs1_padded, cand_yx, mv4, dirm,
-               ref_i, qp, p, n=32, mv_bias=None, bias_dir=None,
+               ref_i, qp, p, n=32, mv_bias=None, bias_dir=None, mesh=None,
                device=None):
     """Decide per candidate group whether one n x n CU at the group's
     modal motion beats four (n/2)-CUs at their own motions.
 
     cand_yx [G,2] (yn, xn) indices on the n-grid; mv4 [G,4,2,2]
     z-order sub-block motions; dirm/ref_i [G]. Returns (promote [G]
-    bool, mv_uni [G,2,2])."""
+    bool, mv_uni [G,2,2]). mesh (Encoder.attach_mesh) is accepted and not
+    used: the pass runs unsharded on `device`, as the JAX package's."""
     from x265_tpu_torch.hevc.rate_model import rdoq_rate_consts
     dev = resolve_device(device)
     G = len(cand_yx)
@@ -415,11 +416,12 @@ CAND_HDR_BITS = 5.0
 
 
 def rd_adopt16(src_yuv, refs0_padded, refs1_padded, inter_blk, mv_blk,
-               dir_blk, ref_blk, cands, qp, p, device=None):
+               dir_blk, ref_blk, cands, qp, p, mesh=None, device=None):
     """Recon-in-the-loop merge adoption (x265 checkMerge2Nx2N with real
     RD, analysis.cpp:1914): every inter 16x16 block is coded under its
     own motion AND each frame-dominant candidate tuple (up to four); the
-    cheapest configuration wins, the first on ties.
+    cheapest configuration wins, the first on ties. mesh is accepted and
+    not used, as by rd_promote.
 
     Returns updated (dir_blk, mv_blk, ref_blk, adopted_mask)."""
     from x265_tpu_torch.hevc.rate_model import rdoq_rate_consts

@@ -502,6 +502,17 @@ GOLDEN_CASES = {
         "make_ramp_clip", 27),
     "medium_abr_cpu_residual": ("medium", None, {"bitrate": "100"},
                                 "make_clip", 3),
+    # a mesh of four tiles (GOLDEN_MESH, Encoder.attach_mesh): the shape
+    # of the JAX package's multi-chip dry run (__graft_entry__.py), its
+    # all-intra lossless encode (16x16 CTUs, one slice a band, pictures
+    # through encode_frame) and its P/B encode, which the JAX package's
+    # mesh codes only without the device residual (GOLDEN_ATTRS)
+    "mesh4_allintra_lossless": (
+        "ultrafast", None, {"lossless": "1", "keyint": "1", "ctu": "16",
+                            "slices": "4"}, "make_clip", 28),
+    "mesh4_medium_cpu_residual": (
+        "medium", None, {"qp": "30", "bframes": "2", "rc-lookahead": "0",
+                         "scenecut": "0", "slices": "4"}, "make_clip", 29),
 }
 # Encoder attributes a golden case sets after construction, in both
 # packages (testclip.golden_stream sets them)
@@ -511,7 +522,12 @@ GOLDEN_ATTRS = {
     "ultrafast_zerolatency_py": {"use_native": False},
     "fast_zerolatency_rdoq_py": {"use_native": False},
     "medium_abr_cpu_residual": {"use_tpu_residual": False},
+    "mesh4_medium_cpu_residual": {"use_tpu_residual": False},
 }
+# golden cases encoded under a mesh of this many tiles: golden_stream
+# attaches the mesh its caller builds for the package (the port's
+# golden_mesh; in the JAX package x265_tpu.parallel.tiles.make_tile_mesh)
+GOLDEN_MESH = {"mesh4_allintra_lossless": 4, "mesh4_medium_cpu_residual": 4}
 GOLDEN_SIZE = (192, 128, 5)          # width, height, frames
 GOLDEN_CUT = 3                       # the scene cut of make_cut_clip cases
 # cases of their own length (two mini-GOPs of B frames) and scene cut
@@ -527,12 +543,15 @@ GOLDEN_FRAMES = {"fast_crf": (11, None), "medium_crf_cut": (11, 7),
                  "medium_nr_slices2": (11, None),
                  "medium_zerolatency_dup_hist": (7, 4),
                  "fast_crf_notpu": (11, None),
-                 "medium_abr_cpu_residual": (11, None)}
+                 "medium_abr_cpu_residual": (11, None),
+                 "mesh4_allintra_lossless": (2, None),
+                 "mesh4_medium_cpu_residual": (4, None)}
 GOLDEN_DUP = 2                       # the duplicate of make_dup_cut_clip
 # cases of their own size: 120 lines are 7.5 rows of 16, so the bottom
 # 8 lines are coded as 8x8 CUs, whose 4x4 chroma TBs transform skip can
 # take (the analysis decides 16x16 blocks elsewhere)
-GOLDEN_SIZES = {"medium_tskip": (192, 120)}
+GOLDEN_SIZES = {"medium_tskip": (192, 120),
+                "mesh4_allintra_lossless": (128, 64)}
 # the qpfile of medium_qpfile_zones (display index, type, QP): a B
 # picture's QP, a forced keyframe (a CRA under open GOP), an IDR that
 # closes the GOP, and a QP on a picture whose P type is not forced
@@ -616,14 +635,31 @@ def golden_params(name, params_module, tmpdir=None, encoder=None):
     return build(fixed)
 
 
-def golden_stream(enc, name, frames):
+def golden_mesh(name, device):
+    """The port's mesh of a GOLDEN_MESH case: its tiles all on `device`
+    (parallel.tiles.make_tile_mesh(n, devices=[device] * n)); None for
+    any other case."""
+    if name not in GOLDEN_MESH:
+        return None
+    from x265_tpu_torch.parallel.tiles import make_tile_mesh
+    n = GOLDEN_MESH[name]
+    return make_tile_mesh(n, devices=[device] * n)
+
+
+def golden_stream(enc, name, frames, mesh=None):
     """(stream, per-picture QP maps) of a golden case through the entry
     point its digest records: Encoder.encode for GOLDEN_PIPELINED, else
     headers, encode_frame per picture and flush. A recon sink already on
     the encoder still receives every picture. The case's GOLDEN_ATTRS
-    are set on the encoder first."""
+    are set on the encoder first, and a GOLDEN_MESH case's mesh (of the
+    encoder's package, built by the caller) is attached."""
     for attr, value in GOLDEN_ATTRS.get(name, {}).items():
         setattr(enc, attr, value)
+    if name in GOLDEN_MESH:
+        if mesh is None or mesh.devices.size != GOLDEN_MESH[name]:
+            raise ValueError(f"golden case {name} is encoded under a mesh "
+                             f"of {GOLDEN_MESH[name]} tiles")
+        enc.attach_mesh(mesh)
     qp_maps = []
 
     def note_qp():
