@@ -25,6 +25,7 @@ import math
 from dataclasses import dataclass
 
 from x265_tpu_torch.api.params import RC_ABR, RC_CQP, RC_CRF
+from x265_tpu_torch.utils.profiling import spanned
 
 I_SLICE, P_SLICE, B_SLICE = 2, 1, 0    # HEVC syntax values
 
@@ -214,6 +215,7 @@ class RateControl:
                 return z
         return None
 
+    @spanned("ratecontrol")
     def start_forced(self, slice_type: int, qp: int,
                      satd_cost: float) -> int:
         """--qpfile forced-QP frame: no RC decision is made, but the
@@ -227,6 +229,7 @@ class RateControl:
         self.last_qscale = qscale
         return qp
 
+    @spanned("ratecontrol")
     def start(self, slice_type: int, satd_cost: float,
               frame_idx=None) -> int:
         """Pick the slice QP for the next frame in encode order."""
@@ -326,6 +329,7 @@ class RateControl:
         self._pending = (slice_type, satd_cost, qp2qscale(qp), rceq)
         return qp
 
+    @spanned("ratecontrol")
     def set_lookahead(self, entries) -> None:
         """Feed the costs of upcoming (not yet coded) frames in encode
         order: [(slice_type, satd_cost), ...]. Used by the VBV clip to
@@ -391,6 +395,7 @@ class RateControl:
             return None if ct is None else np.asarray(ct, np.float64)
         return None
 
+    @spanned("ratecontrol")
     def reencode_qp(self, bits: int):
         """Post-encode VBV emergency gate — the whole-frame re-imagining
         of x265's row-level VBV re-encode (rowVbvRateControl,
@@ -425,6 +430,7 @@ class RateControl:
         self.last_qscale = qp2qscale(qp)
         return qp
 
+    @spanned("ratecontrol")
     def end(self, bits: int) -> None:
         """Account a coded frame (x265 rateControlEnd)."""
         st = self._pending[0] if self._pending else P_SLICE

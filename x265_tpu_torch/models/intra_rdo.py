@@ -34,6 +34,7 @@ from x265_tpu_torch.models.rdo import (_chroma_qp_vec, _lam_full, _psy_cost,
                                        _rd_cost, _sse, _tb_rate_bits_j)
 from x265_tpu_torch.models.residual import _tq_chain
 from x265_tpu_torch.ops.intra_matrix import intra_weight_matrices
+from x265_tpu_torch.utils import profiling
 from x265_tpu_torch.utils.device import resolve_device
 
 # static syntax estimates (bin-count scale, see models/rdo.py):
@@ -273,8 +274,10 @@ def rd_intra_promote32(frame, dec, qp, p, min_groups=1, init_type=0,
     promote = (c1 <= c4).cpu().numpy()
     mode1 = mode1.cpu().numpy()
     n = int(promote.sum())
+    profiling.count("rd.intra32.tried", G)
     if n < min_groups:
         return 0
+    profiling.count("rd.intra32.won", n)
     for gy, gx, m in zip(ys[promote], xs[promote], mode1[promote]):
         dec.cu_log2_map[gy * 4:gy * 4 + 4, gx * 4:gx * 4 + 4] = 5
         dec.luma_mode8[gy * 4:gy * 4 + 4, gx * 4:gx * 4 + 4] = int(m)

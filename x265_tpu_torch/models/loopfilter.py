@@ -24,6 +24,7 @@ import torch
 
 from x265_tpu_torch.hevc.deblock import BETA_TABLE, TC_TABLE
 from x265_tpu_torch.utils.device import resolve_device
+from x265_tpu_torch.utils.profiling import scope
 
 
 def _table(t, dev):
@@ -315,10 +316,11 @@ def deblock_frame_device(recon, st, is_intra4, mv4, refpoc4, qp,
     y, cb, cr = recon
     dev = y.device if isinstance(y, torch.Tensor) else resolve_device(device)
     h4, w4 = st.cbf4.shape
-    bs_v = derive_bs(st.edge_v, is_intra4, st.cbf4, mv4, refpoc4,
-                     vertical=True)
-    bs_h = derive_bs(st.edge_h, is_intra4, st.cbf4, mv4, refpoc4,
-                     vertical=False)
+    with scope("lf.bs"):
+        bs_v = derive_bs(st.edge_v, is_intra4, st.cbf4, mv4, refpoc4,
+                         vertical=True)
+        bs_h = derive_bs(st.edge_h, is_intra4, st.cbf4, mv4, refpoc4,
+                         vertical=False)
     if np.isscalar(qp) or np.ndim(qp) == 0:
         qp4 = np.full((h4, w4), int(qp), np.int32)
     else:
@@ -335,9 +337,14 @@ def deblock_frame_device(recon, st, is_intra4, mv4, refpoc4, qp,
     def small(a, dt=np.int32):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(dev)
 
-    maps = (small(bs_v), small(bs_h), small(qp4),
-            small(st.bypass4, np.bool_), small(lut_cb), small(lut_cr),
-            int(beta_off), int(tc_off), int(bd))
+    with scope("lf.upload"):
+        maps = (small(bs_v), small(bs_h), small(qp4),
+                small(st.bypass4, np.bool_), small(lut_cb), small(lut_cr),
+                int(beta_off), int(tc_off), int(bd))
+        planes = (up(y), up(cb), up(cr))
+        if sao_src is not None:
+            from x265_tpu_torch.utils import devcache
+            planes += tuple(devcache.src_plane(s, bd, dev) for s in sao_src)
 
     def down(planes):
         # int32 to the caller (SAO/metrics code uses a 1<<20
@@ -345,24 +352,24 @@ def deblock_frame_device(recon, st, is_intra4, mv4, refpoc4, qp,
         return tuple(o.cpu().numpy().astype(np.int32) for o in planes)
 
     if sao_src is None:
-        out = _deblock(up(y), up(cb), up(cr), *maps)
+        with scope("lf.deblock"):
+            out = _deblock(*planes, *maps)
 
         def finish():
-            return out if keep_device else down(out)
+            with scope("lf.finish"):
+                return out if keep_device else down(out)
     else:
         from x265_tpu_torch.hevc.sao import stats_to_host
-        from x265_tpu_torch.utils import devcache
         ctb = 1 << ctb_log2
         H, W = y.shape
         cy, cx = -(-H // ctb), -(-W // ctb)
-        out = _deblock_sao(
-            up(y), up(cb), up(cr),
-            *(devcache.src_plane(s, bd, dev) for s in sao_src),
-            *maps, ctb, cy, cx)
+        with scope("lf.deblock"):
+            out = _deblock_sao(*planes, *maps, ctb, cy, cx)
 
         def finish():
-            stats = stats_to_host(out[3])
-            if keep_device:
-                return out[:3], stats
-            return (*down(out[:3]), stats)
+            with scope("lf.finish"):
+                stats = stats_to_host(out[3])
+                if keep_device:
+                    return out[:3], stats
+                return (*down(out[:3]), stats)
     return finish if not sync else finish()

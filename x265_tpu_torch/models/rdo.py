@@ -28,6 +28,7 @@ from x265_tpu_torch.hevc.tables import RDOQ_LAM32_FULL
 from x265_tpu_torch.models.inter_residual import (_const_dev, _mc_gather,
                                                   gather_src_blocks)
 from x265_tpu_torch.models.residual import _tq_chain
+from x265_tpu_torch.utils import profiling
 from x265_tpu_torch.utils.device import resolve_device
 
 # CU-level syntax estimates (static bin-count scale): a merge/skip CU
@@ -346,7 +347,10 @@ def rd_promote(src_yuv, refs0_padded, refs1_padded, cand_yx, mv4, dirm,
         do_rdoq=p.rdoq_level > 0, scaling=bool(p.scaling_lists),
         pad=pad, cb_off=int(p.cb_qp_offset), cr_off=int(p.cr_qp_offset),
         psy=round(float(getattr(p, "psy_rd", 0.0)), 2))
-    return (c1 <= c4).cpu().numpy(), mv_uni
+    promote = (c1 <= c4).cpu().numpy()
+    profiling.count("rd.promote.tried", G)
+    profiling.count("rd.promote.won", int(promote.sum()))
+    return promote, mv_uni
 
 
 def rd_promote32(*args, **kw):
@@ -465,6 +469,7 @@ def rd_adopt16(src_yuv, refs0_padded, refs1_padded, inter_blk, mv_blk,
     choice = cost.argmin(axis=0).reshape(nby, nbx)
     choice = np.where(inter_blk, choice, 0)
     adopted = choice > 0
+    profiling.count("rd.adopt16.tried", int(np.count_nonzero(inter_blk)))
     if not adopted.any():
         return dir_blk, mv_blk, ref_blk, adopted
     carr = np.array([[dd, r0_, m0[0], m0[1], m1[0], m1[1]]
@@ -477,4 +482,10 @@ def rd_adopt16(src_yuv, refs0_padded, refs1_padded, inter_blk, mv_blk,
     mv_out[adopted, 0, 1] = sel[adopted, 3]
     mv_out[adopted, 1, 0] = sel[adopted, 4]
     mv_out[adopted, 1, 1] = sel[adopted, 5]
+    # won: the blocks whose motion changed (a candidate equal to the
+    # block's own motion can win on its cheaper header alone)
+    used = np.stack([(dir_out & 1) > 0, (dir_out & 2) > 0], -1)
+    moved = ((mv_out != mv_blk).any(axis=-1) & used).any(axis=-1)
+    changed = adopted & ((dir_out != dir_blk) | (ref_out != ref_blk) | moved)
+    profiling.count("rd.adopt16.won", int(np.count_nonzero(changed)))
     return dir_out, mv_out, ref_out, adopted
