@@ -69,7 +69,7 @@ from x265_tpu_torch.api import params as api_params
 from x265_tpu_torch.api.params import param_default_preset, param_parse
 from x265_tpu_torch.decoder.decoder import HEVCDecoder
 from x265_tpu_torch.engine import lookahead, me
-from x265_tpu_torch.models import inter_residual, intra_frame
+from x265_tpu_torch.models import inter_residual, intra_frame, loopfilter
 from x265_tpu_torch.ops import cuda_build, cuda_kernels, cuda_mc
 from x265_tpu_torch.hevc.bitstream import NAL_TRAIL_R, split_annexb
 from x265_tpu_torch.hevc.sei import (SEI_CONTENT_LIGHT_LEVEL,
@@ -339,10 +339,12 @@ def plain_versions():
     saved = (inter_residual.tile_gather, inter_residual.mc_gather_interp,
              me.tile_gather_planes, me.tile_gather_planes_satd,
              me._satd_kernel, me.sad_sweep_argmin, me.sad_local_argmin,
-             lookahead.sad_sweep_argmin, lookahead.satd_intra)
+             lookahead.sad_sweep_argmin, lookahead.satd_intra,
+             loopfilter.deblock_bs)
     # models/rdo.py and models/intra_rdo.py reach kernels 1 and 2 through
     # inter_residual; engine/lookahead.py reaches kernel 4's intra entry
-    # and kernel 5 itself; me._bi_satd reaches kernels 3 and 4 through me
+    # and kernel 5 itself; me._bi_satd reaches kernels 3 and 4 through me;
+    # models/loopfilter.py reaches the boundary strengths' kernel
     inter_residual.tile_gather = cuda_mc.tile_gather_plain
     inter_residual.mc_gather_interp = cuda_mc.mc_gather_interp_plain
     me.tile_gather_planes = cuda_mc.tile_gather_planes_plain
@@ -352,6 +354,7 @@ def plain_versions():
     me.sad_local_argmin = cuda_kernels.sad_local_argmin_plain
     lookahead.sad_sweep_argmin = cuda_kernels.sad_sweep_argmin_plain
     lookahead.satd_intra = cuda_kernels.satd_intra_plain
+    loopfilter.deblock_bs = cuda_kernels.deblock_bs_plain
     try:
         yield
     finally:
@@ -359,7 +362,7 @@ def plain_versions():
          me.tile_gather_planes, me.tile_gather_planes_satd,
          me._satd_kernel, me.sad_sweep_argmin,
          me.sad_local_argmin, lookahead.sad_sweep_argmin,
-         lookahead.satd_intra) = saved
+         lookahead.satd_intra, loopfilter.deblock_bs) = saved
 
 
 def to_dev(a):
@@ -1397,9 +1400,11 @@ META = {
 LOW_LATENCY_OFF_PATH = ("sad_sweep", "tile_gather_planes",
                         # CQP without scene cuts runs no lookahead
                         "satd8x8_intra")
+# ultrafast (the first slice) does not deblock
+OFF_PATH_UNFILTERED = LOW_LATENCY_OFF_PATH + ("deblock_bs",)
 # the dense search of the slow preset replaces the two-level search, so
 # its path never runs the window entry
-OFF_PATH = {"encode_1080p": LOW_LATENCY_OFF_PATH,
+OFF_PATH = {"encode_1080p": OFF_PATH_UNFILTERED,
             "encode_1080p_filtered": LOW_LATENCY_OFF_PATH,
             # the live encode's only SATD is the lookahead's intra cost
             # (the one-operand entry): no B pictures, no motion tuples
@@ -1426,13 +1431,15 @@ OFF_PATH = {"encode_1080p": LOW_LATENCY_OFF_PATH,
             "ladder_2160p_2proc": ("sad_sweep",),
             # the motion API runs no RD pass and no residual
             "motion_api_1080p": ("sad_sweep", "mc_gather_interp",
-                                 "tile_gather", "satd8x8_intra"),
+                                 "tile_gather", "satd8x8_intra",
+                                 "deblock_bs"),
             # config 3 without the device residual under a mesh of four
             # tiles: encode_1080p_medium_cpu_residual's kernels
             "encode_1080p_medium_mesh4": ("sad_sweep",),
             # the band step: kernel 5's fused entry, a launch a band
             "tiles_1080p": tuple(k for k in META
-                                 if k != "sad_sweep_argmin")}
+                                 if k != "sad_sweep_argmin")
+            + ("deblock_bs",)}
 # the kernels of the motion search, which an encode that loads its
 # decisions must not launch
 MOTION_KERNELS = ("tile_gather_planes", "tile_gather_planes_satd",

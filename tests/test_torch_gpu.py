@@ -10,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from x265_tpu_torch.hevc.deblock import derive_bs
 from x265_tpu_torch.models.inter_residual import _LUMA_FILT
 from x265_tpu_torch.ops import cuda_kernels, cuda_mc
+
+import deblock_bs_cases
 
 
 def T(a):
@@ -74,8 +77,23 @@ def test_cuda_kernels_equal_plain_on_the_card():
     a16 = T(rng.integers(-255, 256, (N, 8, 8)).astype(np.int16)).to(dev)
     assert torch.equal(cuda_kernels.satd_intra(a16),
                        cuda_kernels.satd_intra_plain(a16))
+    # the boundary strengths of a ragged 4x4 grid
+    bs = _bs_inputs(deblock_bs_cases.random_maps(rng, 13, 21), dev)
+    for got, want in zip(cuda_kernels.deblock_bs(*bs),
+                         cuda_kernels.deblock_bs_plain(*bs)):
+        assert torch.equal(got, want)
     for k in before:
         assert cuda_mc.launches[k] == before[k] + 1
+
+
+def _bs_inputs(maps, dev):
+    """deblock_bs's (flags, mv4, refpoc4) on `dev` from the six maps of
+    deblock_bs_cases."""
+    edge_v, edge_h, intra, cbf, mv4, refpoc4 = maps
+    return (T(cuda_kernels.deblock_bs_flags(edge_v, edge_h, intra, cbf)
+              ).to(dev),
+            T(mv4.astype(np.int16)).to(dev),
+            T(refpoc4.astype(np.int32)).to(dev))
 
 
 def _dev():
@@ -451,3 +469,67 @@ def test_sweep_at_the_band_shape_equals_plain_on_the_card():
         wi, wc = cuda_kernels.sad_sweep_argmin_plain(cur, ref, zero, 16, 8)
         assert torch.equal(gi, wi) and torch.equal(gc, wc)
         assert float(gc.max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h4,w4", [(270, 480), (30, 50)])
+def test_deblock_bs_equals_plain_and_derive_bs_on_the_card(h4, w4):
+    """The bS kernel == its plain version == derive_bs, both directions,
+    on random maps that reach every branch (1080p's grid and a ragged
+    one), then on every branch case of deblock_bs_cases; one launch a
+    call."""
+    dev = _dev()
+    rng = np.random.default_rng(h4)
+    cases = [deblock_bs_cases.random_maps(rng, h4, w4)]
+    cases += [deblock_bs_cases.case_maps(c, v)[:6]
+              for c in deblock_bs_cases.CASES for v in (True, False)]
+    for maps in cases:
+        edge_v, edge_h, intra, cbf, mv4, refpoc4 = maps
+        bs = _bs_inputs(maps, dev)
+        before = cuda_mc.launches["deblock_bs"]
+        got = cuda_kernels.deblock_bs(*bs)
+        assert cuda_mc.launches["deblock_bs"] == before + 1
+        plain = cuda_kernels.deblock_bs_plain(*(t.cpu() for t in bs))
+        for g, p, e, v in zip(got, plain, (edge_v, edge_h), (True, False)):
+            assert g.dtype == torch.int32 and g.device.type == "cuda"
+            assert torch.equal(g.cpu(), p)
+            assert np.array_equal(g.cpu().numpy(), derive_bs(
+                e, intra, cbf, mv4, refpoc4, vertical=v))
+
+
+@pytest.mark.gpu
+def test_deblock_frame_device_on_the_card_equals_the_cpu():
+    """models.loopfilter.deblock_frame_device at 1080p on a random state
+    (the bS kernel feeding the filter and the SAO statistics) == the same
+    call on the CPU: planes and statistics."""
+    from x265_tpu_torch.models import loopfilter
+    from x265_tpu_torch.utils import convert
+    dev = _dev()
+    rng = np.random.default_rng(1080)
+    h, w = 1080, 1920
+    edge_v, edge_h, intra, cbf, mv4, refpoc4 = deblock_bs_cases.random_maps(
+        rng, h // 4, w // 4)
+    st, intra, mv4, refpoc4 = convert.deblock_state_from_numpy(
+        h, w, edge_v, edge_h, cbf, rng.random((h // 4, w // 4)) < 0.05,
+        intra, mv4, refpoc4)
+    base = rng.integers(60, 200, (h // 8 + 2, w // 8 + 2))
+    y = np.kron(base, np.ones((8, 8), np.int64))[:h, :w]
+    y = np.clip(y + rng.integers(-6, 7, (h, w)), 0, 255).astype(np.int32)
+    cb = np.clip(y[::2, ::2] // 2 + 60, 0, 255).astype(np.int32)
+    cr = np.clip(250 - y[::2, ::2] // 2, 0, 255).astype(np.int32)
+    src = tuple(np.clip(p + rng.integers(-3, 4, p.shape), 0, 255)
+                .astype(np.uint8) for p in (y, cb, cr))
+    qp = rng.integers(18, 40, st.cbf4.shape).astype(np.int32)
+    args = (st, intra, mv4, refpoc4, qp, 1, -1, 1, -1, 8)
+    before = cuda_mc.launches["deblock_bs"]
+    got = loopfilter.deblock_frame_device((y, cb, cr), *args, sao_src=src,
+                                          device=dev)
+    assert cuda_mc.launches["deblock_bs"] == before + 1
+    want = loopfilter.deblock_frame_device((y, cb, cr), *args, sao_src=src,
+                                           device="cpu")
+    for g, wn in zip(got[:3], want[:3]):
+        assert np.array_equal(g, wn)
+    assert (got[0] != y).any()
+    for pl in range(3):
+        for k in range(4):
+            assert np.array_equal(got[3][pl][k], want[3][pl][k]), (pl, k)

@@ -1,6 +1,8 @@
 """models/loopfilter.py and hevc/sao.py of the port against the JAX
 package and against the numpy reference (hevc/deblock.py): deblocked
-planes, SAO statistics and SAO apply, all integer, all exact."""
+planes, SAO statistics and SAO apply, all integer, all exact; and the
+boundary strengths of ops.cuda_kernels.deblock_bs's plain version against
+hevc.deblock.derive_bs, branch by branch."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -9,9 +11,11 @@ import torch
 from x265_tpu.hevc import sao as jsao
 from x265_tpu.models import loopfilter as jlf
 from x265_tpu_torch.hevc import sao as tsao
-from x265_tpu_torch.hevc.deblock import NOPOC, deblock_frame
+from x265_tpu_torch.hevc.deblock import NOPOC, deblock_frame, derive_bs
 from x265_tpu_torch.models import loopfilter as tlf
+from x265_tpu_torch.ops import cuda_kernels
 from x265_tpu_torch.utils import convert
+import deblock_bs_cases
 import torch_port_util  # noqa: F401  (one torch thread)
 
 
@@ -156,3 +160,48 @@ def test_sao_apply_device_matches_apply_frame(h, w, ctb_log2):
                               t.numpy().astype(np.int32))
     assert any(not np.array_equal(t.numpy(), p)
                for t, p in zip(got, (y, cb, cr)))
+
+
+def _bs_both(edge_v, edge_h, intra, cbf, mv4, refpoc4):
+    """(want_v, want_h) from derive_bs; (got_v, got_h) from the plain
+    version on the narrow inputs, and again through the loop filter's
+    packing (models.loopfilter._boundary_strengths on the CPU)."""
+    want = [derive_bs(e, intra, cbf, mv4, refpoc4, vertical=v)
+            for e, v in ((edge_v, True), (edge_h, False))]
+    flags = torch.from_numpy(cuda_kernels.deblock_bs_flags(
+        edge_v, edge_h, intra, cbf))
+    got = cuda_kernels.deblock_bs_plain(
+        flags, torch.from_numpy(mv4.astype(np.int16)),
+        torch.from_numpy(refpoc4.astype(np.int32)))
+    st = convert.deblock_state_from_numpy(
+        4 * intra.shape[0], 4 * intra.shape[1], edge_v, edge_h, cbf)[0]
+    packed = tlf._boundary_strengths(st, intra, mv4, refpoc4,
+                                     torch.device("cpu"))
+    return want, got, packed
+
+
+@pytest.mark.parametrize("vertical", [True, False])
+@pytest.mark.parametrize("case", [*deblock_bs_cases.CASES, "random_30x50",
+                                  "random_270x480"])
+def test_deblock_bs_plain_equals_derive_bs(case, vertical):
+    """Every branch of the derivation, one edge a case, in both directions
+    (the expected bS checked where the case puts it); then random maps at
+    a size that is not a CTU multiple (120x200) and at 1080p's grid."""
+    if case.startswith("random"):
+        h4, w4 = map(int, case.split("_")[1].split("x"))
+        rng = np.random.default_rng(h4 + vertical)
+        maps = deblock_bs_cases.random_maps(rng, h4, w4)
+        pos = want_at = None
+    else:
+        *maps, pos, want_at = deblock_bs_cases.case_maps(case, vertical)
+    want, got, packed = _bs_both(*maps)
+    for w, g, k in zip(want, got, packed):
+        assert g.dtype == torch.int32 and k.dtype == torch.int32
+        assert np.array_equal(g.numpy(), w)
+        assert np.array_equal(k.numpy(), w)
+    d = 0 if vertical else 1
+    if pos is not None:
+        assert want[d][pos] == want_at
+    else:                       # the random maps reach every strength
+        assert set(np.unique(want[d])) == {0, 1, 2}
+    assert not want[0][:, 0].any() and not want[1][0, :].any()

@@ -9,8 +9,12 @@ calcSaoStatsCTU) are taken right behind it, so the deblocked planes
 never leave the device: with keep_device they become the next pictures'
 reference and only the statistics are downloaded.
 
-Boundary-strength derivation stays on the host: it is tiny (4x4-granular
-maps) and depends on decision maps the host already holds.
+The boundary strengths are derived on the device too, from the 4x4
+maps the host builds (ops.cuda_kernels.deblock_bs: one launch for both
+directions, csrc/deblock_bs.cu on the card, the plain version on the
+CPU); hevc/deblock.derive_bs stays their numpy reference. Only the
+compact inputs cross the bus: a flag byte, int16 motion vectors and
+int32 reference POCs a block, in one copy from page-locked memory.
 
 All integer, int32 inside and int16 on return: bit-exact against
 hevc/deblock.py and against the JAX package
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from x265_tpu_torch.hevc.deblock import BETA_TABLE, TC_TABLE
+from x265_tpu_torch.ops.cuda_kernels import deblock_bs, deblock_bs_flags
 from x265_tpu_torch.utils.device import resolve_device
 from x265_tpu_torch.utils.profiling import scope
 
@@ -294,6 +299,27 @@ def _chroma_luts(cb_qp_off, cr_qp_off):
     return lut(cb_qp_off), lut(cr_qp_off)
 
 
+def _boundary_strengths(st, is_intra4, mv4, refpoc4, dev):
+    """(bs_v, bs_h) int32 [h4, w4] on `dev`. The inputs are packed into
+    one host buffer, page-locked for a CUDA device so that the copy is
+    queued without waiting for the work ahead of it: the refpoc4 int32s,
+    the mv4 int16s (HEVC motion vectors are 16-bit), then the flag bytes,
+    each part 8-byte aligned."""
+    h4, w4 = st.cbf4.shape
+    n = h4 * w4
+    host = torch.empty(17 * n, dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+    buf = host.numpy()
+    buf[:8 * n].view(np.int32).reshape(h4, w4, 2)[...] = refpoc4
+    buf[8 * n:16 * n].view(np.int16).reshape(h4, w4, 2, 2)[...] = mv4
+    deblock_bs_flags(st.edge_v, st.edge_h, is_intra4, st.cbf4,
+                     out=buf[16 * n:].reshape(h4, w4))
+    wire = host.to(dev, non_blocking=True)
+    return deblock_bs(wire[16 * n:].view(h4, w4),
+                      wire[8 * n:16 * n].view(torch.int16).view(h4, w4, 2, 2),
+                      wire[:8 * n].view(torch.int32).view(h4, w4, 2))
+
+
 def deblock_frame_device(recon, st, is_intra4, mv4, refpoc4, qp,
                          beta_off=0, tc_off=0, cb_qp_off=0, cr_qp_off=0,
                          bd=8, sao_src=None, ctb_log2=6, sync=True,
@@ -312,15 +338,11 @@ def deblock_frame_device(recon, st, is_intra4, mv4, refpoc4, qp,
     device the filter runs while the host goes on.
     device=None means the CUDA device.
     """
-    from x265_tpu_torch.hevc.deblock import derive_bs
     y, cb, cr = recon
     dev = y.device if isinstance(y, torch.Tensor) else resolve_device(device)
     h4, w4 = st.cbf4.shape
     with scope("lf.bs"):
-        bs_v = derive_bs(st.edge_v, is_intra4, st.cbf4, mv4, refpoc4,
-                         vertical=True)
-        bs_h = derive_bs(st.edge_h, is_intra4, st.cbf4, mv4, refpoc4,
-                         vertical=False)
+        bs_v, bs_h = _boundary_strengths(st, is_intra4, mv4, refpoc4, dev)
     if np.isscalar(qp) or np.ndim(qp) == 0:
         qp4 = np.full((h4, w4), int(qp), np.int32)
     else:
@@ -338,7 +360,7 @@ def deblock_frame_device(recon, st, is_intra4, mv4, refpoc4, qp,
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(dev)
 
     with scope("lf.upload"):
-        maps = (small(bs_v), small(bs_h), small(qp4),
+        maps = (bs_v, bs_h, small(qp4),
                 small(st.bypass4, np.bool_), small(lut_cb), small(lut_cr),
                 int(beta_off), int(tc_off), int(bd))
         planes = (up(y), up(cb), up(cr))

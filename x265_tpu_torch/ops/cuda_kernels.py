@@ -1,5 +1,5 @@
-"""SATD and the block-SAD searches: the Hopper kernels' wrappers and their
-plain PyTorch versions.
+"""SATD, the block-SAD searches and the deblocking boundary strengths: the
+Hopper kernels' wrappers and their plain PyTorch versions.
 
 Counterpart of x265_tpu/ops/pallas_kernels.py (satd8x8_pallas /
 satd_pallas, sad_sweep_pallas); the kernels are csrc/satd.cu and
@@ -9,15 +9,20 @@ The sweep has three: sad_sweep (the field, what the TPU kernel returns),
 sad_sweep_argmin (fused with the mv cost and the argmin, over one plane
 or a stack of P; serves engine.me._int_stage and the lookahead) and
 sad_local_argmin (a window and an mv cost of its own for every block;
-serves engine.me._local_search). On a CUDA tensor a wrapper launches its kernel
-or raises; on a CPU tensor it runs the plain version. The launch counts
-live with the other kernels' in ops.cuda_mc.launches.
+serves engine.me._local_search). deblock_bs (csrc/deblock_bs.cu) derives
+both directions' boundary strengths of a picture in one launch for
+models/loopfilter.py; the JAX package derives them on the host with
+hevc/deblock.derive_bs, which stays the reference. On a CUDA tensor a
+wrapper launches its kernel or raises; on a CPU tensor it runs the plain
+version. The launch counts live with the other kernels' in
+ops.cuda_mc.launches.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from x265_tpu_torch.hevc.deblock import NOPOC
 from x265_tpu_torch.models.intra_frame import first_argmin
 from x265_tpu_torch.ops import cuda_build, cuda_mc
 
@@ -341,3 +346,103 @@ def sad_local_argmin(cur_blocks, ref_pad, y0s, x0s, centers, lam,
         cuda_build.check_launch(err, "sad_local_argmin")
         cuda_mc.launches["sad_local_argmin"] += 1
     return best_d, best_cost
+
+
+# ------------------------------------------------ deblocking boundary strength
+
+# bits of deblock_bs's flag map
+BS_EDGE_V, BS_EDGE_H, BS_INTRA, BS_CBF = 1, 2, 4, 8
+
+
+def deblock_bs_flags(edge_v, edge_h, is_intra4, cbf4, out=None):
+    """The uint8 flag map deblock_bs reads, from the four [h4, w4] maps
+    (any integer or bool arrays; nonzero is set), written into `out` when
+    given."""
+    def bit(a, k):
+        return np.left_shift(np.asarray(a, bool).view(np.uint8), k)
+
+    if out is None:
+        out = np.empty(np.shape(edge_v), np.uint8)
+    np.bitwise_or(np.asarray(edge_v, bool).view(np.uint8), bit(edge_h, 1),
+                  out=out)
+    out |= bit(is_intra4, 2)
+    out |= bit(cbf4, 3)
+    return out
+
+
+def _bs_dir(f, mv, poc, dim: int, edge: int):
+    """bS of the edge between every block and its neighbour before it
+    along `dim`, as hevc.deblock.derive_bs computes it: its roll wraps
+    around only into the first column (row), which is zeroed."""
+    pf, pmv, ppoc = (torch.roll(t, 1, dim) for t in (f, mv, poc))
+    p_used, q_used = ppoc != NOPOC, poc != NOPOC
+    p_n, q_n = p_used.sum(-1), q_used.sum(-1)
+
+    def uni(u, pc, m):
+        return (torch.where(u[..., 0], pc[..., 0], pc[..., 1]),
+                torch.where(u[..., 0:1], m[..., 0, :], m[..., 1, :]))
+
+    def close(a, b):
+        return (a - b).abs().amax(-1) < 4
+
+    p1poc, p1mv = uni(p_used, ppoc, pmv)
+    q1poc, q1mv = uni(q_used, poc, mv)
+    uni_bs1 = (p1poc != q1poc) | ~close(p1mv, q1mv)
+    straight = ((ppoc[..., 0] == poc[..., 0]) & (ppoc[..., 1] == poc[..., 1])
+                & close(pmv[..., 0, :], mv[..., 0, :])
+                & close(pmv[..., 1, :], mv[..., 1, :]))
+    crossed = ((ppoc[..., 0] == poc[..., 1]) & (ppoc[..., 1] == poc[..., 0])
+               & close(pmv[..., 0, :], mv[..., 1, :])
+               & close(pmv[..., 1, :], mv[..., 0, :]))
+    mv_bs1 = torch.where((p_n == 1) & (q_n == 1), uni_bs1,
+                         torch.where((p_n == 2) & (q_n == 2),
+                                     ~(straight | crossed), True))
+    both = pf | f
+    bs = torch.where((both & BS_INTRA) != 0, 2,
+                     (((both & BS_CBF) != 0) | mv_bs1).to(torch.int32))
+    bs = torch.where((f & edge) != 0, bs, 0).to(torch.int32)
+    bs.select(dim, 0).zero_()      # the picture's edge is not filtered
+    return bs
+
+
+def deblock_bs_plain(flags, mv4, refpoc4):
+    """(bs_v, bs_h) as whole-map tensor ops (int32 arithmetic)."""
+    f = flags.to(torch.int32)
+    mv = mv4.to(torch.int32)
+    poc = refpoc4.to(torch.int32)
+    return (_bs_dir(f, mv, poc, 1, BS_EDGE_V),
+            _bs_dir(f, mv, poc, 0, BS_EDGE_H))
+
+
+def deblock_bs(flags, mv4, refpoc4):
+    """Boundary strengths of every 4x4 block's left (bs_v) and top (bs_h)
+    edge, int32 [h4, w4] each, as hevc.deblock.derive_bs gives them for
+    both directions. flags uint8 [h4, w4] (deblock_bs_flags); mv4 int16
+    [h4, w4, 2, 2] quarter-pel; refpoc4 int32 [h4, w4, 2], NOPOC where a
+    list is unused. One launch for both maps."""
+    cuda_mc._check(flags, "flags", torch.uint8, 2)
+    dev = flags.device
+    cuda_mc._check(mv4, "mv4", torch.int16, 4, dev)
+    cuda_mc._check(refpoc4, "refpoc4", torch.int32, 3, dev)
+    h4, w4 = flags.shape
+    if (tuple(mv4.shape) != (h4, w4, 2, 2)
+            or tuple(refpoc4.shape) != (h4, w4, 2)):
+        raise ValueError(f"mv4 {tuple(mv4.shape)} / refpoc4 "
+                         f"{tuple(refpoc4.shape)} do not match flags "
+                         f"[{h4}, {w4}]")
+    if dev.type != "cuda":
+        return deblock_bs_plain(flags, mv4, refpoc4)
+    if mv4.data_ptr() % 8 or refpoc4.data_ptr() % 8:
+        raise ValueError("mv4 and refpoc4 must be 8-byte aligned")
+    bs_v = torch.empty((h4, w4), dtype=torch.int32, device=dev)
+    bs_h = torch.empty((h4, w4), dtype=torch.int32, device=dev)
+    if h4 * w4:
+        lib = cuda_build.get_lib()
+        with torch.cuda.device(dev):
+            err = lib.x265_deblock_bs(flags.data_ptr(), mv4.data_ptr(),
+                                      refpoc4.data_ptr(), bs_v.data_ptr(),
+                                      bs_h.data_ptr(), h4, w4,
+                                      cuda_mc._stream(dev))
+        cuda_build.check_launch(err, "deblock_bs")
+        cuda_mc.launches["deblock_bs"] += 1
+    return bs_v, bs_h
