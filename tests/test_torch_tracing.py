@@ -173,6 +173,67 @@ def test_rd_counters(traced):
     assert counters["vbv.reencodes"] == 0
 
 
+SLOW_SCOPES = ("rdoq", "rqt", "me.dense")
+SLOW_COUNTERS = ("rdoq.tbs", "rqt.tried", "rqt.won")
+
+
+def test_slow_scopes_stay_closed_in_medium(traced):
+    """medium (rdoq-level 0, tu-inter-depth 1, the two-level search at
+    merange 57) opens none of the slow preset's three scopes and moves
+    none of their counters."""
+    _, sp, counters, _ = traced
+    assert not {s.name for s in sp} & set(SLOW_SCOPES)
+    assert all(counters[c] == 0 for c in SLOW_COUNTERS)
+
+
+def test_slow_encode_opens_its_scopes_and_counts():
+    """A tiny encode at the port's slow preset, tu-inter-depth 2 as its
+    table has it (the lookahead cut to 6 pictures and the search range to
+    16, so that it stays small): RDOQ, the explicit RQT and the
+    dense search each open their stage scope inside the picture (or the
+    leaf-B batch) they work for, and the
+    counters follow: TBs handed to RDOQ, CUs the RQT re-ran, those that
+    took the split (no more than it re-ran)."""
+    p = TP.param_default_preset("slow")
+    for k, v in (("bitrate", "300"), ("rc-lookahead", "6"),
+                 ("merange", "16"), ("psy-rdoq", "1.0")):
+        TP.param_parse(p, k, v)
+    p.width, p.height = 192, 128
+    profiling.reset()
+    profiling.record(True)
+    try:
+        enc = Encoder(p, device="cpu")
+        enc.headers()
+        for f in make_clip(192, 128, 10, 3, step=(1, 1)):
+            enc.encode_frame(*f)
+        enc.flush()
+        sp, counters = profiling.spans(), profiling.counters()
+        stages = profiling.report()
+    finally:
+        profiling.record(False)
+        profiling.reset()
+    assert set(SLOW_SCOPES) <= set(profiling.SYNC_STAGES)
+    by = _by_id(sp)
+
+    def ancestors(s):
+        while s.parent is not None:
+            s = by[s.parent]
+            yield s.name
+    for name in SLOW_SCOPES:
+        mine = [s for s in sp if s.name == name]
+        assert mine and stages[name]["calls"] == len(mine), name
+        # each inside a picture, or the leaf-B batch of several
+        assert all({"picture", "b_batch"} & set(ancestors(s))
+                   for s in mine), name
+    # the RQT and RDOQ run inside the residual, the dense sweep in motion
+    assert all(by[s.parent].name == "tpu_residual"
+               for s in sp if s.name == "rqt")
+    assert all(by[s.parent].name == "motion"
+               for s in sp if s.name == "me.dense")
+    assert counters["rdoq.tbs"] > 0
+    assert 0 < counters["rqt.won"] <= counters["rqt.tried"]
+
+
 @pytest.mark.parametrize("case", ["own_motion", "other_motion"])
 def test_adopt16_counts_inter_blocks_and_changed_motion(case):
     """rd_adopt16 on a 64x64 picture whose own motion points far off: the

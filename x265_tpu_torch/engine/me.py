@@ -37,6 +37,7 @@ from x265_tpu_torch.ops.cuda_mc import (tile_gather_planes,
 from x265_tpu_torch.ops.ref.interp import LUMA_FILTERS
 from x265_tpu_torch.parallel import mesh as _mesh
 from x265_tpu_torch.utils.device import resolve_device
+from x265_tpu_torch.utils.profiling import scope
 
 
 def _mv_bits(v: np.ndarray) -> np.ndarray:
@@ -593,15 +594,16 @@ def _motion_fused(cur, refs_big, lam, S, R, subme, bd, do_bi,
     # --me full forces the dense sweep at any range) ---
     mv_int = []
     if R <= 24 or force_dense:
-        dys, dxs = np.mgrid[-R:R + 1, -R:R + 1]
-        mvcost = torch.from_numpy(
-            (_mv_bits(4 * dxs.ravel()) + _mv_bits(4 * dys.ravel()))
-            .astype(np.float32)).to(dev)
-        for r in range(nref):
-            mv_int.append(_gather([_int_stage(
-                b.cur, b.refs[r, P - R + b.by0 * S:P + b.by1 * S + R,
-                              P - R:P + W + R],
-                b.on(lam * mvcost), S, R) for b in bands], dev))
+        with scope("me.dense"):
+            dys, dxs = np.mgrid[-R:R + 1, -R:R + 1]
+            mvcost = torch.from_numpy(
+                (_mv_bits(4 * dxs.ravel()) + _mv_bits(4 * dys.ravel()))
+                .astype(np.float32)).to(dev)
+            for r in range(nref):
+                mv_int.append(_gather([_int_stage(
+                    b.cur, b.refs[r, P - R + b.by0 * S:P + b.by1 * S + R,
+                                  P - R:P + W + R],
+                    b.on(lam * mvcost), S, R) for b in bands], dev))
     else:
         from x265_tpu_torch.engine.planes import pad_dev
         R2 = (R + 1) // 2

@@ -40,6 +40,7 @@ import torch
 from x265_tpu_torch.hevc.tables import CHROMA_QP_TABLE
 from x265_tpu_torch.models.residual import _tq_chain
 from x265_tpu_torch.ops.cuda_mc import mc_gather_interp, tile_gather
+from x265_tpu_torch.utils import profiling
 from x265_tpu_torch.utils.device import resolve_device
 
 _LUMA_FILT = np.array([
@@ -110,6 +111,45 @@ def _tq_quads(res, qvec, m, N, bd, sdh, do_rdoq, lossless, scaling,
                 .reshape(N, 2 * m, 2 * m))
 
     return back(lv), back(rr), cb_.reshape(N, 4)
+
+
+def _rqt_split(res, whole, quads, qpy, rate_kk):
+    """The explicit RQT level's choice for a batch of N CUs: True where
+    the TU split into four quadrants costs less than the one TU, each
+    32*SSE + lambda*estBits over the three planes, the split charged the
+    tree's extra bins (4 extra cbf_luma + up to 8 child chroma cbfs, ~8
+    bins net of the shared flag). res: the (y, cb, cr) residuals
+    [N,n,n], [N,n/2,n/2]; whole, quads: each plane's (levels, recon
+    residual) of the one TU and of the quadrants (in the CU's layout);
+    qpy [N]; rate_kk: the slice's estBit rows (luma, chroma)."""
+    from x265_tpu_torch.models.rdo import _lam_full, _sse, _tb_rate_bits_j
+    N = res[0].shape[0]
+    lam = _lam_full(qpy) / float(1 << 15)            # bits domain
+
+    def rate_whole(lv, kkrow):
+        return torch.where((lv != 0).any(dim=2).any(dim=1),
+                           _tb_rate_bits_j(lv, kkrow), 0.0)
+
+    def rate_quads(lv, kkrow):
+        m = lv.shape[-1] // 2
+        q = (lv.reshape(N, 2, m, 2, m).permute(0, 1, 3, 2, 4)
+             .reshape(N * 4, m, m))
+        r = torch.where((q != 0).any(dim=2).any(dim=1),
+                        _tb_rate_bits_j(q, kkrow), 0.0).reshape(N, 4)
+        return ((r[:, 0] + r[:, 1]) + r[:, 2]) + r[:, 3]
+
+    def sse3(tbs):
+        return (_sse(res[0], tbs[0][1]) + _sse(res[1], tbs[1][1])
+                + _sse(res[2], tbs[2][1]))
+
+    kkl, kkc = rate_kk[0], rate_kk[1]
+    rate_a = (rate_whole(whole[0][0], kkl) + rate_whole(whole[1][0], kkc)
+              + rate_whole(whole[2][0], kkc))
+    rate_b = (rate_quads(quads[0][0], kkl) + rate_quads(quads[1][0], kkc)
+              + rate_quads(quads[2][0], kkc))
+    cost_a = 32.0 * sse3(whole) + lam * rate_a
+    cost_b = 32.0 * sse3(quads) + lam * (rate_b + 8.0)
+    return cost_b < cost_a
 
 
 def _inter_class_body(src_y, src_cb, src_cr,
@@ -252,59 +292,36 @@ def _inter_class_body(src_y, src_cb, src_cr,
     if rqt and 16 <= n <= 32 and not lossless:
         # explicit RQT level (x265 estimateResidualQT, search.cpp:2863):
         # re-run the chain with the TU split into 4 quadrants and keep
-        # the per-CU winner of 32*SSE + lambda*estBits (+ the tree's
-        # extra cbf/flag bins charged to the split)
-        from x265_tpu_torch.models.rdo import (_lam_full, _sse,
-                                               _tb_rate_bits_j)
-        lam = _lam_full(qpy) / float(1 << 15)        # bits domain
-        ry, rcb, rcr = sy - pred_y, scb - pred_cb, scr - pred_cr
-        ly2, ry2, qy2 = _tq_quads(ry, qpy, n // 2, N, bd, sdh, do_rdoq,
-                                  lossless, scaling, kl, psy_fx)
-        lcb2, rcb2, qcb2 = _tq_quads(rcb, cqp(cb_off), hs // 2, N, bd, sdh,
-                                     do_rdoq, lossless, scaling, kc)
-        lcr2, rcr2, qcr2 = _tq_quads(rcr, cqp(cr_off), hs // 2, N, bd, sdh,
-                                     do_rdoq, lossless, scaling, kc)
-
-        def sse3(ra, rb, rc):
-            return _sse(ry, ra) + _sse(rcb, rb) + _sse(rcr, rc)
-
-        def rate_whole(lv, kkrow):
-            return torch.where((lv != 0).any(dim=2).any(dim=1),
-                               _tb_rate_bits_j(lv, kkrow), 0.0)
-
-        def rate_quads(lv, kkrow, m):
-            q = (lv.reshape(N, 2, m, 2, m).permute(0, 1, 3, 2, 4)
-                 .reshape(N * 4, m, m))
-            r = torch.where((q != 0).any(dim=2).any(dim=1),
-                            _tb_rate_bits_j(q, kkrow), 0.0).reshape(N, 4)
-            return ((r[:, 0] + r[:, 1]) + r[:, 2]) + r[:, 3]
-
-        kkl, kkc = rate_kk[0], rate_kk[1]
-        rate_a = (rate_whole(lvl_y, kkl) + rate_whole(lvl_cb, kkc)
-                  + rate_whole(lvl_cr, kkc))
-        rate_b = (rate_quads(ly2, kkl, n // 2)
-                  + rate_quads(lcb2, kkc, hs // 2)
-                  + rate_quads(lcr2, kkc, hs // 2))
-        # tree-bin overhead of the split: 4 extra cbf_luma + up to 8
-        # child chroma cbfs, ~8 bins net of the shared flag
-        cost_a = 32.0 * sse3(rres_y, rres_cb, rres_cr) + lam * rate_a
-        cost_b = 32.0 * sse3(ry2, rcb2, rcr2) + lam * (rate_b + 8.0)
-        split = cost_b < cost_a
-        tusplit = split.to(torch.int32)
-        sm = split[:, None, None]
-        lvl_y = torch.where(sm, ly2, lvl_y)
-        rres_y = torch.where(sm, ry2, rres_y)
-        lvl_cb = torch.where(sm, lcb2, lvl_cb)
-        rres_cb = torch.where(sm, rcb2, rres_cb)
-        lvl_cr = torch.where(sm, lcr2, lvl_cr)
-        rres_cr = torch.where(sm, rcr2, rres_cr)
-        # per-quadrant cbf (z-order) regardless of the choice: an
-        # unsplit CU gives its single cbf to all 4 cells
-        whole = torch.stack([(a != 0).any(dim=2).any(dim=1)
-                             for a in (lvl_y, lvl_cb, lvl_cr)], dim=1)
-        quads = torch.stack([qy2, qcb2, qcr2], dim=2)          # [N,4,3]
-        cbf = torch.where(split[:, None, None], quads,
-                          whole[:, None, :].expand_as(quads))
+        # the per-CU winner (_rqt_split)
+        profiling.count("rqt.tried", N)
+        with profiling.scope("rqt"):
+            ry, rcb, rcr = sy - pred_y, scb - pred_cb, scr - pred_cr
+            ly2, ry2, qy2 = _tq_quads(ry, qpy, n // 2, N, bd, sdh, do_rdoq,
+                                      lossless, scaling, kl, psy_fx)
+            lcb2, rcb2, qcb2 = _tq_quads(rcb, cqp(cb_off), hs // 2, N, bd,
+                                         sdh, do_rdoq, lossless, scaling, kc)
+            lcr2, rcr2, qcr2 = _tq_quads(rcr, cqp(cr_off), hs // 2, N, bd,
+                                         sdh, do_rdoq, lossless, scaling, kc)
+            split = _rqt_split((ry, rcb, rcr),
+                               ((lvl_y, rres_y), (lvl_cb, rres_cb),
+                                (lvl_cr, rres_cr)),
+                               ((ly2, ry2), (lcb2, rcb2), (lcr2, rcr2)),
+                               qpy, rate_kk)
+            tusplit = split.to(torch.int32)
+            sm = split[:, None, None]
+            lvl_y = torch.where(sm, ly2, lvl_y)
+            rres_y = torch.where(sm, ry2, rres_y)
+            lvl_cb = torch.where(sm, lcb2, lvl_cb)
+            rres_cb = torch.where(sm, rcb2, rres_cb)
+            lvl_cr = torch.where(sm, lcr2, lvl_cr)
+            rres_cr = torch.where(sm, rcr2, rres_cr)
+            # per-quadrant cbf (z-order) regardless of the choice: an
+            # unsplit CU gives its single cbf to all 4 cells
+            whole = torch.stack([(a != 0).any(dim=2).any(dim=1)
+                                 for a in (lvl_y, lvl_cb, lvl_cr)], dim=1)
+            quads = torch.stack([qy2, qcb2, qcr2], dim=2)      # [N,4,3]
+            cbf = torch.where(split[:, None, None], quads,
+                              whole[:, None, :].expand_as(quads))
     rec_y = (pred_y + rres_y).clamp_(0, maxv)
     rec_cb = (pred_cb + rres_cb).clamp_(0, maxv)
     rec_cr = (pred_cr + rres_cr).clamp_(0, maxv)
@@ -452,6 +469,7 @@ def build_inter_pre(src, decisions, refs_padded, qp_slice, p, wp_native,
     ctb_l2 = p.ctb_log2
     any_pre = False
     classes = []
+    origins = []                # each class's CU origins, on the host
     # --tskip: 8x8 CUs have 4x4 chroma TBs with a per-TB transform_skip
     # decision the pre tensors cannot carry — leave that class to the
     # native compute path (which decides identically)
@@ -476,6 +494,7 @@ def build_inter_pre(src, decisions, refs_padded, qp_slice, p, wp_native,
         if N == 0:
             continue
         any_pre = True
+        origins.append((ys8, xs8))
         x0 = (xs8 * 8).astype(np.int32)
         y0 = (ys8 * 8).astype(np.int32)
         mv = np.ascontiguousarray(decisions.mv8[ys8, xs8]).astype(np.int32)
@@ -524,6 +543,10 @@ def build_inter_pre(src, decisions, refs_padded, qp_slice, p, wp_native,
         bool(p.scaling_lists), kk, psy_fx, rqt, rate_kk)
     (lvl_y, lvl_cb, lvl_cr, cbf8, has8, rec_y, rec_cb, rec_cr,
      tus8) = (t.cpu().numpy() for t in pouts)
+    if rqt:
+        # the CUs that took the split, read at their origins
+        profiling.count("rqt.won", sum(int(tus8[ys, xs].sum())
+                                       for ys, xs in origins))
     return {"lvl_y": lvl_y, "lvl_cb": lvl_cb, "lvl_cr": lvl_cr,
             "cbf8": cbf8, "has8": has8, "tusplit8": tus8,
             "rec_y": rec_y.astype(np.int16),

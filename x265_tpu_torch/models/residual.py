@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from x265_tpu_torch.ops.ref.transform import DCT, DST4
+from x265_tpu_torch.utils import profiling
 from x265_tpu_torch.hevc.tables import (
     QUANT_SCALES, DEQUANT_SCALES, RDOQ_LAM32, RDOQ_LAM32_FULL, SCANS,
     default_scaling_matrix,
@@ -184,10 +185,12 @@ def _ilog2(l: torch.Tensor) -> torch.Tensor:
     return lg
 
 
+@profiling.spanned("rdoq")
 def _rdoq_x64(coeff, lvl, qp, n, bd, scaling: bool = False,
               is_intra: bool = False, consts=None, psy_fx: int = 0):
     """int64 body of rdoq_b (the JAX package traces it under x64; torch
-    has int64 on every device, so nothing is switched here).
+    has int64 on every device, so nothing is switched here). Every call
+    is a stage scope `rdoq` and adds its TBs to the counter `rdoq.tbs`.
 
     consts: optional [8] int32 Q15 fractional-bit constants
     (hevc.rate_model estBit analog) for the batch's plane; None keeps
@@ -196,6 +199,7 @@ def _rdoq_x64(coeff, lvl, qp, n, bd, scaling: bool = False,
     psy_fx: Q8 psy-rdoq strength — AC coefficients earn an energy
     credit (psy_fx * 32 * |dequant(l)|) >> 8 (quant.cpp:610 psy path,
     luma only; matches ops/ref/transform.rdoq bit-exactly)."""
+    profiling.count("rdoq.tbs", coeff.shape[0])
     log2 = n.bit_length() - 1
     qp = qp.to(torch.int32)
     per = torch.div(qp, 6, rounding_mode="floor")

@@ -37,7 +37,7 @@ import torch
 # stage scopes that end in a synchronise under set_sync(True)
 SYNC_STAGES = ("lookahead", "slicetype", "analysis", "motion", "rd_adopt",
                "rd_promote", "tpu_residual", "host_refs", "finalize",
-               "sao_analyze", "loopfilter")
+               "sao_analyze", "loopfilter", "rdoq", "rqt", "me.dense")
 # every span the port opens: the two that group the others (a call of
 # encode_frame, a coded picture), the stage scopes, the rest
 SPANS = ("encode_frame", "picture") + SYNC_STAGES + (
@@ -46,10 +46,13 @@ SPANS = ("encode_frame", "picture") + SYNC_STAGES + (
     "lf.maps", "lf.bs", "lf.upload", "lf.deblock", "lf.finish", "sao_apply",
     "sei", "nal", "frame_stats")
 # every counter the port increments: each RD pass counts the units it
-# tried and those whose decision it changed
+# tried and those whose decision it changed; rdoq.tbs the TBs handed to
+# the RDOQ, rqt.tried / rqt.won the CUs the explicit RQT level re-ran /
+# that took its split (all from host-side sizes and the host copy of the
+# split map: no counter synchronises)
 COUNTERS = ("rd.adopt16.tried", "rd.adopt16.won", "rd.promote.tried",
             "rd.promote.won", "rd.intra32.tried", "rd.intra32.won",
-            "vbv.reencodes")
+            "vbv.reencodes", "rdoq.tbs", "rqt.tried", "rqt.won")
 
 
 @dataclass(slots=True, eq=False)
