@@ -69,9 +69,10 @@ from x265_tpu_torch.api import params as api_params
 from x265_tpu_torch.api.params import param_default_preset, param_parse
 from x265_tpu_torch.decoder.decoder import HEVCDecoder
 from x265_tpu_torch.engine import lookahead, me
-from x265_tpu_torch.models import inter_residual, intra_frame, loopfilter
+from x265_tpu_torch.models import inter_residual, intra_frame, loopfilter, rdo
 from x265_tpu_torch.ops import cuda_build, cuda_kernels, cuda_mc
 from x265_tpu_torch.hevc.bitstream import NAL_TRAIL_R, split_annexb
+from x265_tpu_torch.hevc.rate_model import rdoq_rate_consts
 from x265_tpu_torch.hevc.sei import (SEI_CONTENT_LIGHT_LEVEL,
                                      SEI_MASTERING_DISPLAY)
 from x265_tpu_torch.io.scaler import scale_frame
@@ -340,11 +341,12 @@ def plain_versions():
              me.tile_gather_planes, me.tile_gather_planes_satd,
              me._satd_kernel, me.sad_sweep_argmin, me.sad_local_argmin,
              lookahead.sad_sweep_argmin, lookahead.satd_intra,
-             loopfilter.deblock_bs)
+             loopfilter.deblock_bs, rdo.rd_tb_cost)
     # models/rdo.py and models/intra_rdo.py reach kernels 1 and 2 through
-    # inter_residual; engine/lookahead.py reaches kernel 4's intra entry
-    # and kernel 5 itself; me._bi_satd reaches kernels 3 and 4 through me;
-    # models/loopfilter.py reaches the boundary strengths' kernel
+    # inter_residual and the TB cost chain through rdo; engine/lookahead.py
+    # reaches kernel 4's intra entry and kernel 5 itself; me._bi_satd
+    # reaches kernels 3 and 4 through me; models/loopfilter.py reaches the
+    # boundary strengths' kernel
     inter_residual.tile_gather = cuda_mc.tile_gather_plain
     inter_residual.mc_gather_interp = cuda_mc.mc_gather_interp_plain
     me.tile_gather_planes = cuda_mc.tile_gather_planes_plain
@@ -355,6 +357,7 @@ def plain_versions():
     lookahead.sad_sweep_argmin = cuda_kernels.sad_sweep_argmin_plain
     lookahead.satd_intra = cuda_kernels.satd_intra_plain
     loopfilter.deblock_bs = cuda_kernels.deblock_bs_plain
+    rdo.rd_tb_cost = cuda_kernels.rd_tb_cost_plain
     try:
         yield
     finally:
@@ -362,7 +365,8 @@ def plain_versions():
          me.tile_gather_planes, me.tile_gather_planes_satd,
          me._satd_kernel, me.sad_sweep_argmin,
          me.sad_local_argmin, lookahead.sad_sweep_argmin,
-         lookahead.satd_intra, loopfilter.deblock_bs) = saved
+         lookahead.satd_intra, loopfilter.deblock_bs,
+         rdo.rd_tb_cost) = saved
 
 
 def to_dev(a):
@@ -693,6 +697,102 @@ def local_main_case(rng):
         bytes=(min(Hr * Wr, N * side * side) * 2 + N * S * S * 4
                + 4 * N * 4 + N * 8),
         ops=3 * n * n * N * S * S + 2 * n * n * N, library_ms=None)
+
+
+def rd_blocks(rng, N, S, bd, spread, qp):
+    """rd_tb_cost's (src, pred, qp) on the card: predictions over the whole
+    sample range, sources within +-spread of them, one QP (or a vector)."""
+    maxv = (1 << bd) - 1
+    pred = rnd_i32(rng, 0, maxv + 1, N * S * S).reshape(N, S, S)
+    src = (pred + rnd_i32(rng, -spread, spread + 1, N * S * S)
+           .reshape(N, S, S)).clamp_(0, maxv)
+    qv = (torch.full((N,), qp, dtype=torch.int32, device=DEV)
+          if isinstance(qp, int) else qp)
+    return src, pred, qv
+
+
+def rd_rate_row(is_intra, qp):
+    return to_dev(np.array(rdoq_rate_consts(0 if is_intra else 2, qp)[0]))
+
+
+def check_rd(name, args):
+    """rd_tb_cost against its plain version: all four outputs exact."""
+    got = cuda_kernels.rd_tb_cost(*args)
+    want = cuda_kernels.rd_tb_cost_plain(*args)
+    return max(check_equal(f"{name} {k}", g, w)
+               for k, g, w in zip(("sse", "rate", "psy", "cbf"), got, want))
+
+
+def rd_cost_edge_cases(rng):
+    """Ragged batches (1003 TBs) of every size, flag set and bit depth,
+    whose first TBs are an all-zero residual and residuals at +-(2^bd - 1)
+    at QP 0 (levels at 32767 at 32x32 and 10 bits), the rest at random
+    QPs and amplitudes."""
+    for S in (8, 16, 32):
+        for bd in (8, 10):
+            maxv = (1 << bd) - 1
+            qp = rnd_i32(rng, 0, 52 + 6 * (bd - 8), 1003)
+            src, pred, _ = rd_blocks(rng, 1003, S, bd, maxv, 0)
+            src[0] = pred[0]
+            src[1], pred[1] = maxv, 0
+            src[2], pred[2] = 0, maxv
+            qp[1:3] = 0
+            for flags in ((False, True, False, False, True),
+                          (True, True, True, True, True),
+                          (False, False, True, True, False),
+                          (True, False, False, False, False)):
+                is_intra, sdh, do_rdoq, scaling, want_psy = flags
+                check_rd(f"rd_tb_cost edge S={S} bd={bd} flags={flags}",
+                         (src, pred, qp, rd_rate_row(is_intra, 30),
+                          is_intra, bd, sdh, do_rdoq, scaling, want_psy))
+
+
+def rd_cost_main_case(rng):
+    """rd_tb_cost at the RD passes' 1080p shapes (medium's flags: SBH and
+    psy on the luma, no RDOQ) and slow's and config 4's: the main row is
+    rd_promote32's one-CU luma TBs, one a 32-aligned group of the
+    picture. Bound: the larger of the bytes (src and pred in, 4 int64
+    out) and two operations a multiply-add of the four transform passes
+    and the psy Hadamards at the data sheet's scalar rate."""
+    def shape(N, S, bd, rdoq, scaling, psy, spread=24, qp=32):
+        src, pred, qv = rd_blocks(rng, N, S, bd, spread, qp)
+        args = (src, pred, qv, rd_rate_row(False, qp), False, bd, True,
+                rdoq, scaling, psy)
+        macs = N * (4 * S * S * S + (2 * 2 * 8 * S * S if psy else 0))
+        row = dict(
+            shape=f"src,pred[{N},{S},{S}] int32 {bd}-bit, qp {qp}, sdh"
+                  + ", rdoq" * rdoq + ", scaling lists" * scaling
+                  + ", psy" * psy,
+            max_abs_err=check_rd(f"rd_tb_cost [{N},{S},{S}]", args),
+            ms=time_ms(lambda: cuda_kernels.rd_tb_cost(*args)),
+            plain_ms=time_ms(lambda: cuda_kernels.rd_tb_cost_plain(*args),
+                             1),
+            bytes=N * (2 * S * S * 4 + 4 + 32), ops=2 * macs,
+            library_ms=None)
+        if bd == 8:
+            a10 = rd_blocks(rng, N, S, 10, 4 * spread, qp)
+            row["max_abs_err_10bit"] = check_rd(
+                f"rd_tb_cost [{N},{S},{S}] 10-bit", a10 + args[3:5] + (10,)
+                + args[6:])
+        return row
+    groups = (W // 32) * (H // 32)               # rd_promote32's groups
+    blocks = (W // 16) * ((H + 15) // 16)        # rd_adopt16's blocks
+    blocks4k = (W4K // 16) * (H4K // 16)
+    row = shape(groups, 32, 8, False, False, True)
+    # rd_promote at n=64: each group's four 32x32 quads in one batch
+    row["rd_promote64"] = shape(4 * (W // 64) * (H // 64), 32, 8, False,
+                                False, True)
+    # rd_adopt16: the blocks under their own motion and four candidates
+    row["rd_adopt_luma"] = shape(5 * blocks, 16, 8, False, False, True)
+    row["rd_adopt_chroma"] = shape(5 * blocks, 8, 8, False, False, False)
+    # slow: the same promotion with RDOQ
+    row["rd_promote32_rdoq"] = shape(groups, 32, 8, True, False, True)
+    # config 4 at 2160p: Main10, default scaling lists, RDOQ
+    row["rd_adopt_luma_2160p_main10"] = shape(5 * blocks4k, 16, 10, True,
+                                              True, True, spread=96)
+    row["rd_adopt_chroma_2160p_main10"] = shape(5 * blocks4k, 8, 10, True,
+                                                True, False, spread=96)
+    return row
 
 
 def kernel_phase():
@@ -1368,6 +1468,10 @@ def kernel_phase():
     # --- sad_local_argmin: the window search around the HME centres ------
     local_edge_cases(rng)
     rows["sad_local_argmin"] = local_main_case(rng)
+
+    # --- rd_tb_cost: the RD passes' TB cost chain ------------------------
+    rd_cost_edge_cases(rng)
+    rows["rd_tb_cost"] = rd_cost_main_case(rng)
     return rows
 
 
@@ -1390,6 +1494,9 @@ META = {
                          "x265_tpu/ops/pallas_kernels.py:127"),
     "sad_local_argmin": ("x265_tpu_torch/csrc/sad_sweep.cu",
                          "x265_tpu/ops/pallas_kernels.py:127"),
+    "rd_tb_cost": ("x265_tpu_torch/csrc/rd_cost.cu",
+                   "none: the TB cost chain of x265_tpu/models/rdo.py and "
+                   "intra_rdo.py, left to XLA"),
 }
 
 
@@ -1399,7 +1506,9 @@ META = {
 # me._bi_satd, which only B pictures run
 LOW_LATENCY_OFF_PATH = ("sad_sweep", "tile_gather_planes",
                         # CQP without scene cuts runs no lookahead
-                        "satd8x8_intra")
+                        "satd8x8_intra",
+                        # rd 2 runs no RD pass
+                        "rd_tb_cost")
 # ultrafast (the first slice) does not deblock
 OFF_PATH_UNFILTERED = LOW_LATENCY_OFF_PATH + ("deblock_bs",)
 # the dense search of the slow preset replaces the two-level search, so
@@ -1432,7 +1541,7 @@ OFF_PATH = {"encode_1080p": OFF_PATH_UNFILTERED,
             # the motion API runs no RD pass and no residual
             "motion_api_1080p": ("sad_sweep", "mc_gather_interp",
                                  "tile_gather", "satd8x8_intra",
-                                 "deblock_bs"),
+                                 "deblock_bs", "rd_tb_cost"),
             # config 3 without the device residual under a mesh of four
             # tiles: encode_1080p_medium_cpu_residual's kernels
             "encode_1080p_medium_mesh4": ("sad_sweep",),
@@ -1450,7 +1559,8 @@ MOTION_KERNELS = ("tile_gather_planes", "tile_gather_planes_satd",
 SHAPES_ON_PATH = ("lookahead", "rd_adopt_luma", "rd_adopt_chroma",
                   "rd_promote64", "bi_residual", "bi_satd", "slicetype",
                   "dense", "rd_adopt_luma_2160p_main10", "dense_2160p_main10",
-                  "motion_decide_r16", "slicetype_batch", "tiles_band")
+                  "motion_decide_r16", "slicetype_batch", "tiles_band",
+                  "rd_promote32_rdoq", "rd_adopt_chroma_2160p_main10")
 # the path whose dense-search launches each dense shape reports
 DENSE_PATH = {"dense": "encode_1080p_slow",
               "dense_2160p_main10": "encode_2160p_main10_hdr10",

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from x265_tpu_torch.hevc.deblock import derive_bs
+from x265_tpu_torch.hevc.rate_model import rdoq_rate_consts
 from x265_tpu_torch.models.inter_residual import _LUMA_FILT
 from x265_tpu_torch.ops import cuda_kernels, cuda_mc
 
@@ -81,6 +82,15 @@ def test_cuda_kernels_equal_plain_on_the_card():
     bs = _bs_inputs(deblock_bs_cases.random_maps(rng, 13, 21), dev)
     for got, want in zip(cuda_kernels.deblock_bs(*bs),
                          cuda_kernels.deblock_bs_plain(*bs)):
+        assert torch.equal(got, want)
+    # the RD passes' TB costs: a ragged batch of 8x8 TBs, every flag on
+    src = T(rng.integers(0, 256, (21, 8, 8)).astype(np.int32)).to(dev)
+    pred = T(rng.integers(0, 256, (21, 8, 8)).astype(np.int32)).to(dev)
+    qp = T(rng.integers(0, 52, 21).astype(np.int32)).to(dev)
+    rk = T(np.array(rdoq_rate_consts(2, 30)[0], np.int32)).to(dev)
+    rd = (src, pred, qp, rk, True, 8, True, True, True, True)
+    for got, want in zip(cuda_kernels.rd_tb_cost(*rd),
+                         cuda_kernels.rd_tb_cost_plain(*rd)):
         assert torch.equal(got, want)
     for k in before:
         assert cuda_mc.launches[k] == before[k] + 1

@@ -213,3 +213,31 @@ def test_rd_intra_promote32(qp, psy):
     # chosen 32x32 modes differ between the flat, gradient and textured
     # groups
     assert n_j > 0 and len(np.unique(jdec.luma_mode8[:, :24])) > 1
+
+
+@pytest.mark.parametrize("case", ["ties", "wide", "single", "no_inter"])
+def test_dominant_mv_equals_the_jax_package(case):
+    """The promotions' unification bias (Encoder._dominant_mv): the most
+    frequent (mv, dir) tuple of the inter 8x8 cells, the first in
+    lexicographic order among equal counts, as the JAX package picks it
+    with np.unique."""
+    import types
+    from x265_tpu.api.encoder import Encoder as JEncoder
+    from x265_tpu_torch.api.encoder import Encoder as TEncoder
+    rng = np.random.default_rng(len(case))
+    h8, w8 = 17, 24
+    span, scale = {"ties": (1, 1), "wide": (3, 40000), "single": (0, 1),
+                   "no_inter": (2, 1)}[case]
+    for _ in range(25):
+        dec = types.SimpleNamespace(
+            inter8=(rng.random((h8, w8)) < (0.0 if case == "no_inter"
+                                             else 0.8)),
+            mv8=(rng.integers(-span, span + 1, (h8, w8, 2, 2)) * scale)
+            .astype(np.int32),
+            dir8=rng.integers(1, 4, (h8, w8)).astype(np.int32))
+        want, got = JEncoder._dominant_mv(dec), TEncoder._dominant_mv(dec)
+        if want[0] is None:
+            assert got == (None, None)
+            continue
+        assert np.array_equal(got[0], want[0]) and got[1] == want[1]
+        assert got[0].dtype == np.int32

@@ -30,9 +30,8 @@ import torch
 
 from x265_tpu_torch.models.inter_residual import gather_src_blocks
 from x265_tpu_torch.models.intra_frame import _hadamard, first_argmin
-from x265_tpu_torch.models.rdo import (_chroma_qp_vec, _lam_full, _psy_cost,
-                                       _rd_cost, _sse, _tb_rate_bits_j)
-from x265_tpu_torch.models.residual import _tq_chain
+from x265_tpu_torch.models.rdo import (_chroma_qp_vec, _lam_full, _rd_cost,
+                                       _tb_costs)
 from x265_tpu_torch.ops.intra_matrix import intra_weight_matrices
 from x265_tpu_torch.utils import profiling
 from x265_tpu_torch.utils.device import resolve_device
@@ -138,18 +137,8 @@ def _intra32_costs(y, cb, cr, xy, m4, mbits4, qp, rk,
     def tb_cost(src, pred, qvec, size, want_psy, krow):
         """(sse, rate_bits, psy) of TBs coded from float predictions."""
         predi = torch.round(pred).clamp(0, maxv).to(torch.int32)
-        resi = src - predi
-        lvl, rres, cbf = _tq_chain(
-            resi, qvec, torch.zeros((resi.shape[0],), dtype=torch.int32,
-                                    device=dev),
-            size, False, True, bd, sdh, do_rdoq, False, scaling)
-        sse = _sse(resi, rres)
-        rate = torch.where(cbf, _tb_rate_bits_j(lvl, krow), 0.0)
-        if want_psy:
-            pc = _psy_cost(src, (predi + rres).clamp(0, maxv))
-        else:
-            pc = torch.zeros_like(sse)
-        return sse, rate, pc
+        return _tb_costs(src, predi, qvec, krow, size, True, want_psy, bd,
+                         sdh, do_rdoq, scaling)
 
     # ---- ONE 32-CU: all-35 prediction bank, SATD-shortlist K candidates,
     # full T/Q/recon cost on each, min wins -------------------------------

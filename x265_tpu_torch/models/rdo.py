@@ -7,8 +7,10 @@ candidate is coded (predict, transform, quantize, reconstruct), its
 distortion measured against the source and its rate estimated, and the
 cheaper one wins. Every candidate of a frame is evaluated in one batched
 device pass: the predictions are the MC kernel (models.inter_residual
-._mc_gather), the source tiles the gather kernel, the transform chain
-models/residual.py.
+._mc_gather), the source tiles the gather kernel, and each plane's TBs of
+one size go through the transform chain and its reductions in one launch
+(ops.cuda_kernels.rd_tb_cost: models/residual.py's chain, then SSE, rate
+and psy energy as integers).
 
 Cost domain: 32*SSE + lam_full[qp] * (rate bits + header bits) +
 sqrt(32*lam)*psy_rd*|AC-energy difference|, over all three planes.
@@ -27,7 +29,7 @@ import torch
 from x265_tpu_torch.hevc.tables import RDOQ_LAM32_FULL
 from x265_tpu_torch.models.inter_residual import (_const_dev, _mc_gather,
                                                   gather_src_blocks)
-from x265_tpu_torch.models.residual import _tq_chain
+from x265_tpu_torch.ops.cuda_kernels import rd_tb_cost
 from x265_tpu_torch.utils import profiling
 from x265_tpu_torch.utils.device import resolve_device
 
@@ -37,22 +39,19 @@ from x265_tpu_torch.utils.device import resolve_device
 CU_OH_BITS = 6
 AMVP_EXTRA_BITS = 10
 
-def _tb_rate_bits_j(lvl: torch.Tensor, kk: torch.Tensor) -> torch.Tensor:
-    """TB rate in BITS under the estBit fractional-bit model
+def _tb_rate_fx(lvl: torch.Tensor, kk: torch.Tensor) -> torch.Tensor:
+    """TB rate in Q15 bits under the estBit fractional-bit model
     (hevc/rate_model.py) with coded_sub_block_flag structure: significant
     4x4 groups pay csbf(1) + their coefficients' estBit costs; zero groups
     before the last significant one (raster order) pay csbf(0); groups
-    after it nothing; plus a last-position prefix estimate.
+    after it nothing.
 
-    lvl [N,S,S] int; kk [8] int32 consts row. Returns [N] float32 bits
-    (the caller still gates on cbf). The sum is taken in Q15 integers and
-    converted once."""
+    lvl [N,S,S] int; kk [8] int32 consts row. Returns [N] int64 (the
+    caller still gates on cbf)."""
     from x265_tpu_torch.hevc.rate_model import CG0, CG1, rate_fx_t
     S = lvl.shape[-1]
-    lastpos = 2.0 * (float(np.log2(S)) + 1.0)
     if S == 4:
-        fx = rate_fx_t(lvl, kk).sum(dim=(1, 2), dtype=torch.int64)
-        return fx.to(torch.float32) * (1.0 / 32768.0) + lastpos
+        return rate_fx_t(lvl, kk).sum(dim=(1, 2), dtype=torch.int64)
     nc = S // 4
     cg = (lvl.reshape(-1, nc, 4, nc, 4).permute(0, 1, 3, 2, 4)
           .reshape(-1, nc * nc, 16))
@@ -62,9 +61,21 @@ def _tb_rate_bits_j(lvl: torch.Tensor, kk: torch.Tensor) -> torch.Tensor:
     last = torch.where(nz, idx[None, :], -1).amax(dim=1)
     active = idx[None, :] <= last[:, None]
     kk = kk.to(torch.int64)
-    fx = torch.where(nz, kk[CG1] + per,
-                     torch.where(active, kk[CG0], 0)).sum(dim=1)
+    return torch.where(nz, kk[CG1] + per,
+                       torch.where(active, kk[CG0], 0)).sum(dim=1)
+
+
+def _rate_bits(fx: torch.Tensor, S: int) -> torch.Tensor:
+    """A TB's Q15 rate as float32 bits plus the last-position prefix
+    estimate: the integer sum converted once."""
+    lastpos = 2.0 * (float(np.log2(S)) + 1.0)
     return fx.to(torch.float32) * (1.0 / 32768.0) + lastpos
+
+
+def _tb_rate_bits_j(lvl: torch.Tensor, kk: torch.Tensor) -> torch.Tensor:
+    """_tb_rate_fx in BITS with the last-position prefix estimate: [N]
+    float32 (the caller still gates on cbf)."""
+    return _rate_bits(_tb_rate_fx(lvl, kk), lvl.shape[-1])
 
 
 def _psy_energy8(blocks: torch.Tensor) -> torch.Tensor:
@@ -82,13 +93,6 @@ def _psy_energy8(blocks: torch.Tensor) -> torch.Tensor:
     sa8d = t.abs().sum(dim=(1, 2)).to(torch.int32) // 4
     dc = b.sum(dim=(1, 2), dtype=torch.int32) >> 2
     return (sa8d - dc).reshape(N, -1)
-
-
-def _psy_cost(src, recon):
-    """Summed |AC-energy(src) - AC-energy(recon)| over the 8x8 tiling of
-    [N, S, S] blocks (abs at 8x8 granularity, as in psyCost_pp)."""
-    return (_psy_energy8(src) - _psy_energy8(recon)).abs().sum(
-        dim=1, dtype=torch.int64).to(torch.float32)
 
 
 def _chroma_qp_vec(qp, bd, off):
@@ -127,6 +131,20 @@ def _sse(r, rres):
     and converted to float32 once."""
     e = (r - rres).to(torch.int64)
     return (e * e).sum(dim=(1, 2)).to(torch.float32)
+
+
+def _tb_costs(src, pred, qp, krow, S, is_intra, want_psy, bd, sdh, do_rdoq,
+              scaling):
+    """(sse, rate bits, psy) float32 [N] of N TBs coded from int32
+    predictions: ops.cuda_kernels.rd_tb_cost's integers (one launch on the
+    card) converted as the chain converts them, each TB once, the rate
+    gated on cbf."""
+    sse, fx, psy, cbf = rd_tb_cost(src, pred, qp, krow, is_intra, bd, sdh,
+                                   do_rdoq, scaling, want_psy)
+    sse = sse.to(torch.float32)
+    rate = torch.where(cbf, _rate_bits(fx, S), 0.0)
+    pc = psy.to(torch.float32) if want_psy else torch.zeros_like(sse)
+    return sse, rate, pc
 
 
 def _predict(planes0, planes1, x, y, mv, size, use0, dirv, refv, chroma,
@@ -188,34 +206,25 @@ def _promo_costs(src_y, src_cb, src_cr, r0y, r0cb, r0cr,
     # as 32*sqrt(lam/32) = sqrt(32*lam)
     psylam = torch.sqrt(32.0 * lam) * psy
 
-    def cfg_cost(r, pred, qvec, size, want_psy, krow):
+    def cfg_cost(src, pred, qvec, size, want_psy, krow):
         # TBs larger than 32 ride the implicit RQT split (7.3.8.8):
-        # transform in 32x32 quads, aggregate the costs back per region
+        # transform in 32x32 quads (one batch), aggregate the costs back
+        # per region
         if size > 32:
-            gq = r.shape[0]
+            gq = src.shape[0]
             h = size // 2
 
             def quads(a):
                 return (a.reshape(gq, 2, h, 2, h).permute(0, 1, 3, 2, 4)
                         .reshape(gq * 4, h, h))
-            sse, rate, pc = cfg_cost(quads(r), quads(pred),
+            sse, rate, pc = cfg_cost(quads(src), quads(pred),
                                      qvec.repeat_interleave(4), h,
                                      want_psy, krow)
             return (sse.reshape(gq, 4).sum(dim=1),
                     rate.reshape(gq, 4).sum(dim=1),
                     pc.reshape(gq, 4).sum(dim=1))
-        lvl, rres, cbf = _tq_chain(
-            r, qvec, torch.zeros((r.shape[0],), dtype=torch.int32,
-                                 device=r.device),
-            size, False, False, bd, sdh, do_rdoq, False, scaling)
-        sse = _sse(r, rres)
-        rate = torch.where(cbf, _tb_rate_bits_j(lvl, krow), 0.0)
-        if want_psy:
-            maxv_ = (1 << bd) - 1
-            pc = _psy_cost(pred + r, (pred + rres).clamp(0, maxv_))
-        else:
-            pc = torch.zeros_like(sse)
-        return sse, rate, pc
+        return _tb_costs(src, pred, qvec, krow, size, False, want_psy, bd,
+                         sdh, do_rdoq, scaling)
 
     qpc_cb = _chroma_qp_vec(qp, bd, cb_off) + 6 * (bd - 8)
     qpc_cr = _chroma_qp_vec(qp, bd, cr_off) + 6 * (bd - 8)
@@ -227,7 +236,7 @@ def _promo_costs(src_y, src_cb, src_cr, r0y, r0cb, r0cr,
         pred = _predict(r0[pl], r1[pl], xv, yv, mv, size, use0, dirv, refv,
                         pl > 0, pad, bd)
         # psy energy is a luma-plane cost (pixel.cpp psyCost_pp usage)
-        return cfg_cost(srcp - pred, pred, qv, sz, psy > 0 and pl == 0,
+        return cfg_cost(srcp, pred, qv, sz, psy > 0 and pl == 0,
                         rk[min(pl, 1)])
 
     # --- one n-CU at the unified motion ---
@@ -386,18 +395,8 @@ def _adopt_costs(src_y, src_cb, src_cr, r0y, r0cb, r0cr,
         pred = _predict(r0[pl], r1[pl], x0, y0, mv_all, 16, use0, dir_all,
                         ref_all, pl > 0, pad, bd)
         src = gather_src_blocks(srcs[pl], ys, xs, sz)
-        resi = src - pred
-        lvl, rres, cbf = _tq_chain(
-            resi, qv, torch.zeros((resi.shape[0],), dtype=torch.int32,
-                                  device=resi.device),
-            sz, False, False, bd, sdh, do_rdoq, False, scaling)
-        sse = _sse(resi, rres)
-        rate = torch.where(cbf, _tb_rate_bits_j(lvl, rk[min(pl, 1)]), 0.0)
-        if psy > 0 and pl == 0:
-            pc = _psy_cost(src, (pred + rres).clamp(0, maxv))
-        else:
-            pc = torch.zeros_like(sse)
-        return sse, rate, pc
+        return _tb_costs(src, pred, qv, rk[min(pl, 1)], sz, False,
+                         psy > 0 and pl == 0, bd, sdh, do_rdoq, scaling)
 
     sse, rate, psyc = plane_cost(0, qpy)
     for pl in (1, 2):

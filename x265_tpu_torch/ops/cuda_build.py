@@ -21,7 +21,7 @@ _CSRC = os.path.normpath(os.path.join(_DIR, "..", "csrc"))
 _BUILD = os.path.normpath(os.path.join(_DIR, "..", "build"))
 LIBRARY = os.path.join(_BUILD, "libx265torch_kernels.so")
 SOURCES = ("mc_gather.cu", "tile_gather.cu", "satd.cu", "sad_sweep.cu",
-           "deblock_bs.cu", "calib.cu")
+           "deblock_bs.cu", "rd_cost.cu", "calib.cu")
 HEADERS = ("had8.cuh", "aligned_i16.cuh")   # a change rebuilds the sources
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -45,6 +45,8 @@ _SIGNATURES = {
     "x265_sad_local_argmin": [_P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _L, _P],
     "x265_deblock_bs": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "x265_rd_tb_cost": [_P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # yardsticks (csrc/calib.cu): no wrapper, nothing on the encoder's path
     "x265_calib_empty_grid": [_I, _I, _I, _P],
     "x265_calib_sad_rate": [_P, _I, _I, _I, _I, ctypes.POINTER(_I), _P],

@@ -1,5 +1,6 @@
-"""SATD, the block-SAD searches and the deblocking boundary strengths: the
-Hopper kernels' wrappers and their plain PyTorch versions.
+"""SATD, the block-SAD searches, the deblocking boundary strengths and the
+RD passes' TB costs: the Hopper kernels' wrappers and their plain PyTorch
+versions.
 
 Counterpart of x265_tpu/ops/pallas_kernels.py (satd8x8_pallas /
 satd_pallas, sad_sweep_pallas); the kernels are csrc/satd.cu and
@@ -12,19 +13,28 @@ sad_local_argmin (a window and an mv cost of its own for every block;
 serves engine.me._local_search). deblock_bs (csrc/deblock_bs.cu) derives
 both directions' boundary strengths of a picture in one launch for
 models/loopfilter.py; the JAX package derives them on the host with
-hevc/deblock.derive_bs, which stays the reference. On a CUDA tensor a
+hevc/deblock.derive_bs, which stays the reference. rd_tb_cost
+(csrc/rd_cost.cu) runs the RD passes' whole transform chain of a batch of
+TBs in one launch and returns the four integers they keep of each; the
+JAX package leaves that chain to XLA. On a CUDA tensor a
 wrapper launches its kernel or raises; on a CPU tensor it runs the plain
 version. The launch counts live with the other kernels' in
 ops.cuda_mc.launches.
 """
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
 from x265_tpu_torch.hevc.deblock import NOPOC
+from x265_tpu_torch.hevc.tables import (DEQUANT_SCALES, QUANT_SCALES,
+                                        RDOQ_LAM32, default_scaling_matrix)
 from x265_tpu_torch.models.intra_frame import first_argmin
+from x265_tpu_torch.models.residual import _tmat, _tq_chain
 from x265_tpu_torch.ops import cuda_build, cuda_mc
+from x265_tpu_torch.utils import profiling
 
 # 8x8 Hadamard matrix for SATD (row order of engine.me in the JAX package)
 _H8 = np.array([[1, 1, 1, 1, 1, 1, 1, 1],
@@ -446,3 +456,86 @@ def deblock_bs(flags, mv4, refpoc4):
         cuda_build.check_launch(err, "deblock_bs")
         cuda_mc.launches["deblock_bs"] += 1
     return bs_v, bs_h
+
+
+# ------------------------------------------------------- the RD passes' TB costs
+
+def rd_tb_cost_plain(src, pred, qp, rk, is_intra, bd, sdh, do_rdoq, scaling,
+                     want_psy):
+    """rd_tb_cost's four integers composed from the chain's own functions:
+    models/residual._tq_chain (diagonal scan, no transform skip, not
+    lossless), the integer part of models/rdo._tb_rate_bits_j and
+    models/rdo._psy_energy8."""
+    from x265_tpu_torch.models.rdo import _psy_energy8, _tb_rate_fx
+    N, S, _ = src.shape
+    resi = src - pred
+    lvl, rres, cbf = _tq_chain(
+        resi, qp, torch.zeros((N,), dtype=torch.int32, device=src.device),
+        S, False, is_intra, bd, sdh, do_rdoq, False, scaling)
+    e = (resi - rres).to(torch.int64)
+    sse = (e * e).sum(dim=(1, 2))
+    if want_psy:
+        rec = (pred + rres).clamp(0, (1 << bd) - 1)
+        psy = (_psy_energy8(src) - _psy_energy8(rec)).abs().sum(
+            dim=1, dtype=torch.int64)
+    else:
+        psy = torch.zeros_like(sse)
+    return sse, _tb_rate_fx(lvl, rk), psy, cbf
+
+
+@lru_cache(maxsize=32)
+def _rd_tables(S: int, is_intra: bool, scaling: bool, device: str):
+    """rd_tb_cost's constants on the device: int32 (the DCT matrix, the
+    scaling matrix or 16 everywhere, the quant and dequant scales) and the
+    static RDOQ lambda table as int64."""
+    m = (default_scaling_matrix(S, is_intra) if scaling
+         else np.full((S, S), 16))
+    tab = np.concatenate([_tmat(S, False).reshape(-1), m.reshape(-1),
+                          QUANT_SCALES, DEQUANT_SCALES]).astype(np.int32)
+    return (torch.from_numpy(tab).to(device),
+            torch.from_numpy(np.asarray(RDOQ_LAM32, np.int64)).to(device))
+
+
+def rd_tb_cost(src, pred, qp, rk, is_intra, bd, sdh, do_rdoq, scaling,
+               want_psy):
+    """The RD passes' cost of N same-size TBs coded from int32 predictions:
+    the transform chain of models/residual._tq_chain (quant, RDOQ's static
+    branch when do_rdoq, SBH when sdh, dequant, inverse) reduced to
+    (sse int64 [N], rate int64 [N] in Q15 (before the cbf gate), psy
+    int64 [N] (zero unless want_psy), cbf bool [N]). src, pred int32
+    [N, S, S] with S in 8, 16, 32; qp int32 [N], the plane's Qp'; rk int32
+    [8], the plane's rate constants. One launch; the TBs handed to RDOQ
+    count in `rdoq.tbs` as the chain counts them."""
+    cuda_mc._check(src, "src", torch.int32, 3)
+    dev = src.device
+    cuda_mc._check(pred, "pred", torch.int32, 3, dev)
+    cuda_mc._check(qp, "qp", torch.int32, 1, dev)
+    cuda_mc._check(rk, "rk", torch.int32, 1, dev)
+    N, S, S2 = src.shape
+    if (S != S2 or S not in (8, 16, 32) or pred.shape != src.shape
+            or tuple(qp.shape) != (N,) or tuple(rk.shape) != (8,)):
+        raise ValueError(f"src {tuple(src.shape)} / pred "
+                         f"{tuple(pred.shape)} / qp {tuple(qp.shape)} / rk "
+                         f"{tuple(rk.shape)}: expected [N, S, S] twice with "
+                         f"S in 8, 16, 32, [N] and [8]")
+    if not 8 <= bd <= 10:
+        raise ValueError(f"bit depth {bd}: 8 to 10")
+    if dev.type != "cuda":
+        return rd_tb_cost_plain(src, pred, qp, rk, is_intra, bd, sdh,
+                                do_rdoq, scaling, want_psy)
+    out = torch.empty((N, 4), dtype=torch.int64, device=dev)
+    if N:
+        tab, lam = _rd_tables(S, bool(is_intra), bool(scaling), str(dev))
+        lib = cuda_build.get_lib()
+        with torch.cuda.device(dev):
+            err = lib.x265_rd_tb_cost(
+                src.data_ptr(), pred.data_ptr(), qp.data_ptr(),
+                rk.data_ptr(), tab.data_ptr(), lam.data_ptr(),
+                out.data_ptr(), N, S, int(bool(is_intra)), bd,
+                int(bool(sdh)), int(bool(do_rdoq)), int(bool(scaling)),
+                int(bool(want_psy)), cuda_mc._stream(dev))
+        cuda_build.check_launch(err, "rd_tb_cost")
+        cuda_mc.launches["rd_tb_cost"] += 1
+    if do_rdoq:
+        profiling.count("rdoq.tbs", N)
+    return out[:, 0], out[:, 1], out[:, 2], out[:, 3] != 0

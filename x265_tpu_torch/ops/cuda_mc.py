@@ -26,7 +26,8 @@ from x265_tpu_torch.ops import cuda_build
 launches = {"mc_gather_interp": 0, "tile_gather": 0,
             "tile_gather_planes": 0, "tile_gather_planes_satd": 0,
             "satd8x8": 0, "satd8x8_intra": 0, "sad_sweep": 0,
-            "sad_sweep_argmin": 0, "sad_local_argmin": 0, "deblock_bs": 0}
+            "sad_sweep_argmin": 0, "sad_local_argmin": 0, "deblock_bs": 0,
+            "rd_tb_cost": 0}
 
 
 def reset_launches() -> None:
