@@ -7,8 +7,9 @@ Needs one CUDA device, nvcc and g++; nothing else (no network, no JAX).
 Builds every kernel from the sources in this checkout, holds each against
 its plain PyTorch version on the card (exact equality: they are integer
 kernels), also at the lookahead's shapes, encodes small clips, decodes
-them back and compares the streams of the golden cases with the committed
-digests, then drives the main paths through Encoder.encode — at
+them back and compares the records of the golden cases (the stream's
+digest, QP maps, picture types and QPs, ...) with the committed ones,
+then drives the main paths through Encoder.encode — at
 1920x1080 the low-latency I/P encode (ultrafast + zerolatency), the
 filtered one (fast + zerolatency: deblock, SAO, AQ, weightp, 3 refs), the
 live one (medium + zerolatency under CRF 23 and a 6000 kbps VBV buffer:
@@ -47,7 +48,6 @@ run with a non-zero exit code and no result line.
 """
 import contextlib
 import ctypes
-import hashlib
 import json
 import os
 import struct
@@ -1640,42 +1640,48 @@ def check_filtered(enc, what):
 
 def golden_phase():
     """Encode the golden cases (with the golden ladder's renditions) on
-    the card and hold their digests against the JAX package's
-    (golden_streams.json). Cases without AQ are integer
+    the card and hold their records (testclip.golden_record: the stream's
+    digest, its QP maps, picture types and QPs, ...) against the JAX
+    package's (golden_streams.json). Cases without AQ are integer
     paths behind an fp32 analysis whose sums are exact in any order: a
     mismatch is a fault. The AQ case goes through host float64 (libm's
     pow): a mismatch there is reported with the number of CTUs whose QP
-    differs, and is a fault only when no QP differs."""
+    differs, and is a fault only when no QP differs. Where the stream
+    is the JAX package's, every other field of the record must be too."""
     gold = testclip.golden_digests()
-    encoded = []
+    records = {}
     for name in testclip.GOLDEN_CASES:
         devcache.clear()
         frames = testclip.golden_clip(name)
         with tempfile.TemporaryDirectory() as tmp:     # fixture files
             enc = Encoder(testclip.golden_params(name, api_params, tmp,
                                                  encoder=Encoder))
-            encoded.append((name,) + testclip.golden_stream(
-                enc, name, frames, mesh=testclip.golden_mesh(name, DEV)))
+            records[name] = testclip.golden_record(
+                enc, name, frames, mesh=testclip.golden_mesh(name, DEV),
+                lookahead=lookahead)[1]
     devcache.clear()
-    streams, _ = testclip.golden_ladder(ladder)
-    encoded += [(name, stream, None) for name, stream in streams.items()]
-    for name, stream, qp_maps in encoded:
-        digest = hashlib.sha256(stream).hexdigest()
-        same = (digest == gold[name]["sha256"]
-                and len(stream) == gold[name]["bytes"])
+    records.update(testclip.golden_ladder(ladder)[1])
+    for name, record in records.items():
+        differ = testclip.golden_mismatch(name, record)
+        same = not {"sha256", "bytes"} & set(differ)
         flips = None
         if not same:
             want = gold[name].get("qp_maps")
             if want and any(q is not None for q in want):
                 flips = int(sum(
                     (np.asarray(a) != np.asarray(b)).sum()
-                    for a, b in zip(qp_maps, want) if b is not None))
+                    for a, b in zip(record["qp_maps"], want)
+                    if b is not None))
             if not flips:
-                fail(f"golden {name}: stream digest {digest} "
-                     f"({len(stream)} bytes) != {gold[name]['sha256']} "
+                fail(f"golden {name}: stream digest {record['sha256']} "
+                     f"({record['bytes']} bytes) != {gold[name]['sha256']} "
                      f"({gold[name]['bytes']} bytes), and no AQ QP differs")
-        emit("golden", case=name, bytes=len(stream), equals_jax_stream=same,
-             ctus_with_other_qp=flips)
+        elif differ:
+            fail(f"golden {name}: the stream is the JAX package's, its "
+                 f"{', '.join(differ)} not")
+        emit("golden", case=name, bytes=record["bytes"],
+             equals_jax_stream=same, ctus_with_other_qp=flips,
+             fields_differing=differ)
 
 
 def first_slices(stream):

@@ -1,13 +1,12 @@
 """The first slice as a whole: the port's Encoder against the JAX package's,
 in the slice's configuration (ultrafast + zerolatency, qp 30, scenecut 0,
 ref 1). Streams are compared byte for byte, the port's stream is decoded by
-the port's decoder back to the encoder's recon, and the JAX package's stream
-is held against the committed golden digest
-(x265_tpu_torch/utils/golden_streams.json), which a machine without JAX
-compares its own stream with. The filtered slice (fast + zerolatency) at the
-same size is in tests/test_torch_e2e_golden.py, at 200x120 in
-tests/test_torch_e2e_filtered.py: files of their own, so that other workers
-take the JAX package's compiles for those configurations."""
+the port's decoder back to the encoder's recon; the golden case's stream is
+held against the JAX package's committed record
+(x265_tpu_torch/utils/golden_streams.json), as a machine without JAX holds
+its own stream. The filtered slice (fast + zerolatency) is in
+tests/test_torch_e2e_golden.py (192x128) and tests/test_torch_e2e_filtered.py
+(200x120)."""
 import numpy as np
 import pytest
 
@@ -15,7 +14,7 @@ from x265_tpu.api.encoder import Encoder as JEncoder
 from x265_tpu_torch.api.encoder import Encoder as TEncoder
 from x265_tpu_torch.decoder.decoder import HEVCDecoder
 from torch_port_util import (
-    golden_pair, make_clip, make_hard_clip, slice_params)
+    golden_encoders, make_clip, make_hard_clip, slice_params)
 
 
 def _encode_torch(frames, w, h, **extra):
@@ -27,8 +26,8 @@ def _encode_torch(frames, w, h, **extra):
 
 
 def test_stream_byte_identical_and_decodes_to_recon():
-    enc, stream, recons, ref, frames = golden_pair("ultrafast_zerolatency")
-    assert stream == ref
+    enc, stream, recons, _gold, frames = golden_encoders(
+        "ultrafast_zerolatency")
     assert "".join(s["type"] for s in enc.frame_stats) == "IPPPP"
     assert enc._last_analysis.inter8.any() and np.any(
         enc._last_analysis.mv8)

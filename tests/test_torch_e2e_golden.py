@@ -1,10 +1,8 @@
 """The filtered slice as a whole at 192x128: fast + zerolatency (deblock,
 SAO, AQ, weightp, 3 refs, 64x64 CTUs) on a clip with a brightness ramp, with
-and without AQ: the port's stream equals the JAX package's byte for byte and
-decodes in the port's decoder to the encoder's recon, and the JAX package's
-stream is held against the committed golden digest. Also the numpy route of
-the loop filter. Both cases share one process, so the JAX package compiles
-the configuration once."""
+and without AQ: the port's stream equals the JAX package's byte for byte
+(its committed golden record) and decodes in the port's decoder to the
+encoder's recon. Also the numpy route of the loop filter."""
 import pytest
 
 from x265_tpu_torch.api import params as TP

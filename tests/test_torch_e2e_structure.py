@@ -2,9 +2,9 @@
 (utils/testclip.GOLDEN_CASES): the live encode with WPP substreams and the
 intra-refresh column sweep, a dropped duplicate with a luma-histogram
 scene cut, and WPP on the pipelined all-intra lossless path. The port's
-stream equals the JAX package's byte for byte, the JAX package's stream
-is held against the committed golden digest, and the port's decoder reads
-each back to the encoder's recon (lossless: to the source)."""
+stream equals the JAX package's byte for byte (its committed golden
+record), and the port's decoder reads each back to the encoder's recon
+(lossless: to the source)."""
 import numpy as np
 
 from x265_tpu_torch.utils import testclip
@@ -27,9 +27,8 @@ def _refresh_spy(log):
 
 def test_wpp_intra_refresh_live_golden():
     log = []
-    enc, stream, recons, jenc, ref, frames = golden_encoders(
+    enc, stream, recons, gold, frames = golden_encoders(
         "medium_zerolatency_wpp_ir", setup=_refresh_spy(log))
-    assert stream == ref
     p = enc.param
     assert p.wpp and p.intra_refresh and p.rd_level == 3
     assert enc.pps.entropy_coding_sync_enabled
@@ -51,15 +50,14 @@ def test_wpp_intra_refresh_live_golden():
         assert not inter8[:, col * w8:(col + 1) * w8].any()
         assert (cu[:, col * w8:(col + 1) * w8] <= 5).all()
         assert inter8.any()                  # the rest stays inter
-    assert enc._scenecut_frames == jenc._scenecut_frames == {
+    assert enc._scenecut_frames == set(gold["scenecut_frames"]) == {
         testclip.GOLDEN_CUT}
     assert_decodes_to_recon(stream, recons, len(frames))
 
 
 def test_frame_dup_hist_scenecut_golden():
-    enc, stream, recons, jenc, ref, frames = golden_encoders(
+    enc, stream, recons, gold, frames = golden_encoders(
         "medium_zerolatency_dup_hist")
-    assert stream == ref
     dup, cut = testclip.GOLDEN_DUP, testclip.GOLDEN_FRAMES[
         "medium_zerolatency_dup_hist"][1]
     p = enc.param
@@ -75,7 +73,7 @@ def test_frame_dup_hist_scenecut_golden():
     # the doubled picture is input dup - 1 (POC dup - 1 before the cut)
     assert enc.frame_stats[ps.index(7)]["poc"] == dup - 1 < cut
     # the histogram cut (the lookahead's scenecut is off) is the keyframe
-    assert enc._scenecut_frames == jenc._scenecut_frames == {cut}
+    assert enc._scenecut_frames == set(gold["scenecut_frames"]) == {cut}
     assert [x["nal"] for x in pics].count(21) == 1            # a CRA
     # the queue one deeper under --frame-dup: zerolatency's pictures
     # leave in pairs, the first as a B picture (ROADMAP Queue 3)
@@ -84,9 +82,8 @@ def test_frame_dup_hist_scenecut_golden():
 
 
 def test_wpp_lossless_allintra_golden():
-    enc, stream, recons, jenc, ref, frames = golden_encoders(
+    enc, stream, recons, gold, frames = golden_encoders(
         "ultrafast_lossless_wpp")
-    assert stream == ref
     rows = enc.param.pic_height_in_ctbs
     assert rows == 4
     pics = testclip.stream_structure(stream)

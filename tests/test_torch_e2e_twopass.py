@@ -2,20 +2,18 @@
 kbps, 192x128, 11 frames): pass 1 writes the per-picture stats (with
 its cuTree offsets) when the encode closes, pass 2 plans every QP from
 them and reuses the offsets. The pass-1 stats file equals the JAX
-package's text for text, the pass-2 stream equals the JAX package's (held
-against the committed golden digest) and decodes in the port's decoder
-to the encoder's recon; pass 2 is deterministic; the CLI's --pass/--stats
-reach the same encoder through param_parse."""
+package's byte for byte and the pass-2 stream equals the JAX package's
+(both held against the committed golden record) and decodes in the
+port's decoder to the encoder's recon; pass 2 is deterministic; the
+CLI's --pass/--stats reach the same encoder through param_parse."""
 import hashlib
 import json
 import os
 
-from x265_tpu.api import params as JP
-from x265_tpu.api.encoder import Encoder as JEncoder
 from x265_tpu_torch.api import params as TP
 from x265_tpu_torch.api.encoder import Encoder as TEncoder
 from x265_tpu_torch.utils import testclip
-from torch_port_util import assert_decodes_to_recon, recon_collector
+from torch_port_util import assert_decodes_to_recon, golden_encoders
 
 NAME = "medium_twopass"
 
@@ -25,29 +23,14 @@ def _port(p):
 
 
 def test_pass1_stats_and_pass2_stream_equal_the_reference(tmp_path):
-    frames = testclip.golden_clip(NAME)
-    dirs = {k: tmp_path / k for k in ("port", "jax")}
-    for d in dirs.values():
-        d.mkdir()
-    enc = _port(testclip.golden_params(NAME, TP, str(dirs["port"]),
-                                       encoder=_port))
-    recons = recon_collector(enc)
-    stream, qp_maps = testclip.golden_stream(enc, NAME, frames)
-    jenc = JEncoder(testclip.golden_params(NAME, JP, str(dirs["jax"]),
-                                           encoder=JEncoder))
-    ref, ref_qp_maps = testclip.golden_stream(jenc, NAME, frames)
-    gold = testclip.golden_digests()[NAME]
-    assert gold == {"sha256": hashlib.sha256(ref).hexdigest(),
-                    "bytes": len(ref), "qp_maps": ref_qp_maps}, \
-        f"golden entry of {NAME} is stale"
-    stats = [open(os.path.join(d, f"{NAME}.stats")).read()
-             for d in (dirs["port"], dirs["jax"])]
-    assert stats[0] == stats[1]
-    recs = [json.loads(line) for line in stats[0].splitlines()]
+    enc, stream, recons, gold, frames = golden_encoders(NAME, str(tmp_path))
+    with open(tmp_path / f"{NAME}.stats", "rb") as f:
+        stats = f.read()
+    assert hashlib.sha256(stats).hexdigest() == gold["stats_sha256"]
+    recs = [json.loads(line) for line in stats.decode().splitlines()]
     assert len(recs) == len(frames)
     # the pass-1 cuTree offsets ride the stats file (every P anchor)
     assert any("cutree" in r for r in recs)
-    assert stream == ref and qp_maps == ref_qp_maps
     assert enc.rc.pass_num == 2 and enc.rc.pass2_qp is not None
     # a record a picture, each taken by one rate-control start of pass 2
     # (one leaf B a mini-GOP here, so each record keeps its picture's
@@ -56,8 +39,8 @@ def test_pass1_stats_and_pass2_stream_equal_the_reference(tmp_path):
     assert [r["type"] for r in recs] == [s["type"] for s in enc.frame_stats]
     assert enc.rc.pass2_idx == len(enc.rc.pass2_qs) == len(recs)
     qps = [s["qp"] for s in enc.frame_stats]
-    assert qps == [s["qp"] for s in jenc.frame_stats]
-    assert_decodes_to_recon(stream, recons(), len(frames))
+    assert qps == gold["qps"]
+    assert_decodes_to_recon(stream, recons, len(frames))
 
 
 def test_pass2_is_deterministic(tmp_path):

@@ -1,49 +1,26 @@
 """The finalizer split (tests/test_finalizer_split.py) in the port: with
 the device's inter residual (Encoder.use_tpu_residual = True) or with
 every TB quantized by the native walk (False), the port's streams are
-byte-identical to each other and to the JAX package's, in the four
-configurations of the JAX test (Main10: tests/test_torch_three_way.py)."""
-import numpy as np
+byte-identical to each other and to the JAX package's (the committed
+record of golden case split_<configuration>), in the four configurations
+of the JAX test (Main10: tests/test_torch_three_way.py)."""
 import pytest
 
-from torch_port_util import switch_streams
+from x265_tpu_torch.utils import testclip
+from torch_port_util import golden_encoders, switch_streams
 
 
-def _clip(n=6, seed=7, w=176, h=144):
-    """tests/test_finalizer_split.py's clip."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w]
-    base = (128 + 70 * np.sin(xx / 9.0) * np.cos(yy / 7.0)).astype(int)
-    out = []
-    for i in range(n):
-        y = np.clip(np.roll(base, 3 * i, 1) + np.roll(base // 3, i, 0)
-                    + rng.integers(-4, 5, (h, w)), 0, 255)
-        out.append((y.astype(np.uint8),
-                    np.clip(120 + (y[::2, ::2] >> 3), 0, 255)
-                    .astype(np.uint8),
-                    np.full((h // 2, w // 2), 130, np.uint8)))
-    return out
+def split_streams(name):
+    """(stream without the device residual, golden stream) of a golden
+    case: the second held against the committed record."""
+    _enc, on, _recons, _gold, frames = golden_encoders(name)
+    off, = switch_streams(lambda P: testclip.golden_params(name, P),
+                          frames, [{"use_tpu_residual": False}])
+    return off, on
 
 
-def _split_params(**kw):
-    def build(mod):
-        p = mod.param_default_preset("medium")
-        p.rc_mode, p.qp = mod.RC_CQP, 30
-        for k, v in kw.items():
-            setattr(p, k, v)
-        return p
-    return build
-
-
-@pytest.mark.parametrize("cfg", [
-    dict(),                                      # medium: B frames, SAO, AQ
-    dict(bframes=0, sao=False, aq_mode=0, cu_tree=False),   # plain IPPP
-    dict(rdoq_level=2, ref=2),                   # RDOQ + multiref
-    dict(sign_hide=False, deblock=False),
-], ids=["medium", "ippp", "rdoq_ref2", "nosdh_nodeblock"])
+@pytest.mark.parametrize("cfg", ["medium", "ippp", "rdoq_ref2",
+                                 "nosdh_nodeblock"])
 def test_split_streams_identical(cfg):
-    off, on, jax = switch_streams(
-        _split_params(**cfg), _clip(),
-        [("torch", {"use_tpu_residual": False}), ("torch", {}),
-         ("jax", {})])
-    assert off == on == jax, (len(off), len(on), len(jax), cfg)
+    off, on = split_streams("split_" + cfg)
+    assert off == on, (len(off), len(on), cfg)

@@ -2,24 +2,22 @@
 (x265_tpu_torch/io/reconplay.py, the CLI's --recon and --recon-play)
 against the JAX package: the process shard, the golden two-rendition
 ladder (192x128 -> itself and 96x64, medium ABR; streams and stats()
-equal to the JAX ladder's, each stream held against its golden digest
-and decoded in the port's decoder), ReconPlay's reorder to display order
+equal to the JAX ladder's committed golden records, each stream decoded
+in the port's decoder), ReconPlay's reorder to display order
 (tests/test_apps_io.py:115) and display-order Y4M from both CLI sinks
 (tests/test_apps_io.py:136)."""
-import hashlib
-
 import numpy as np
 
-from x265_tpu.api import ladder as jladder
 from x265_tpu_torch.api import ladder as tladder
 from x265_tpu_torch.decoder.decoder import HEVCDecoder
 from x265_tpu_torch.io.reconplay import ReconPlay
 from x265_tpu_torch.io.y4m import VideoInfo, Y4MReader, write_y4m
 from x265_tpu_torch.utils import testclip
-import torch_port_util  # noqa: F401  (one torch thread)
+from torch_port_util import assert_golden_record
 
 
 def test_rendition_sharding():
+    from x265_tpu.api import ladder as jladder
     R = tladder.Rendition
     r = [R(192, 128, 600), R(96, 64, 200), R(48, 32, 80)]
     for pc in (1, 2, 3):
@@ -30,14 +28,9 @@ def test_rendition_sharding():
 
 
 def test_golden_ladder_equals_the_reference():
-    got, ladder = testclip.golden_ladder(tladder, device="cpu")
-    want, jl = testclip.golden_ladder(jladder)
-    gold = testclip.golden_digests()
-    for name, stream in want.items():
-        assert gold[name]["sha256"] == hashlib.sha256(stream).hexdigest(), \
-            f"golden entry of {name} is stale"
-    assert got == want
-    assert ladder.stats() == jl.stats()
+    got, records, ladder = testclip.golden_ladder(tladder, device="cpu")
+    for name, record in records.items():
+        assert_golden_record(name, record)       # stream and stats()
     n = testclip.GOLDEN_LADDER_SOURCE[2]
     for name, (w, h, kbps) in testclip.GOLDEN_LADDER.items():
         pics = HEVCDecoder().decode(got[name])

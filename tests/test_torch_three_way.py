@@ -1,23 +1,18 @@
 """The finalizer split at Main10 (tests/test_finalizer_split.py): the
 port's streams with and without the device's inter residual equal each
-other and the JAX package's; and the 64x64-CU three-way check of
-tests/test_cu64.py: the native walk, the device residual and the Python
-oracle writer (Encoder.use_native = False) give the same bytes, the JAX
-package's."""
+other and the JAX package's (the committed record of golden case
+split_main10); and the 64x64-CU three-way check of tests/test_cu64.py:
+the native walk, the device residual and the Python oracle writer
+(Encoder.use_native = False) give the same bytes, the JAX package's."""
 import numpy as np
 
-from test_torch_finalizer_split import _clip, _split_params
+from test_torch_finalizer_split import split_streams
 from torch_port_util import _smooth_noise, switch_streams
 
 
 def test_split_streams_identical_main10():
-    frames = [(y.astype(np.uint16) * 4, cb.astype(np.uint16) * 4,
-               cr.astype(np.uint16) * 4) for (y, cb, cr) in _clip(4)]
-    off, on, jax = switch_streams(
-        _split_params(bit_depth=10, bframes=2), frames,
-        [("torch", {"use_tpu_residual": False}), ("torch", {}),
-         ("jax", {})])
-    assert off == on == jax
+    off, on = split_streams("split_main10")
+    assert off == on
 
 
 def _cu64_clip(n=3, w=192, h=128, shift=2, noise=0, seed=11):
@@ -92,15 +87,23 @@ def _force64(seen):
 def test_cu64_residual_three_way_bitexact():
     """64x64 CUs with residual (the implicit 4x32 TU split): the native
     walk, the device residual and the Python writer give the same bytes,
-    the JAX package's, and the stream decodes to the recon."""
+    the JAX package's, and the stream decodes to the recon. The JAX
+    package encodes here: the patched merges are no golden case."""
+    from x265_tpu.api import params as JP
+    from x265_tpu.api.encoder import Encoder as JEncoder
     from x265_tpu_torch.decoder.decoder import HEVCDecoder
     seen = []
     frames = _cu64_clip(n=3, shift=2, noise=4, seed=5)
-    a, b, c, jax = switch_streams(
+    a, b, c = switch_streams(
         _cu64_params, frames,
-        [("torch", {"use_tpu_residual": False}), ("torch", {}),
-         ("torch", {"use_native": False, "use_tpu_residual": False}),
-         ("jax", {})], setup=_force64(seen))
+        [{"use_tpu_residual": False}, {},
+         {"use_native": False, "use_tpu_residual": False}],
+        setup=_force64(seen))
+    p = _cu64_params(JP)
+    p.height, p.width = frames[0][0].shape
+    jenc = JEncoder(p)
+    _force64(seen)(jenc)
+    jax = jenc.encode(frames)
     assert any((m == 6).any() for m in seen), "no 64x64 CU promoted"
     assert a == b == c == jax
     ours = HEVCDecoder().decode(a)

@@ -1,6 +1,5 @@
 """Shared helpers of the tests/test_torch_*.py files: seeded clips and
 the slice's configuration, built the same way for both packages."""
-import hashlib
 import importlib
 
 import numpy as np
@@ -106,20 +105,6 @@ def slice_params(pkg, w, h, **extra):
 
 # ---- golden cases (x265_tpu_torch/utils/testclip.GOLDEN_CASES) ----------
 
-def count_reencodes(enc):
-    """Count, in enc.vbv_reencodes, the VBV re-encodes the JAX package's
-    encoder's rate control asks for (the port's Encoder counts its own)."""
-    enc.vbv_reencodes = 0
-    orig = enc.rc.reencode_qp
-
-    def wrapped(bits):
-        rq = orig(bits)
-        enc.vbv_reencodes += rq is not None
-        return rq
-    enc.rc.reencode_qp = wrapped
-    return enc
-
-
 def recon_collector(enc):
     """Attach a recon sink; returns a function giving the recons in display
     order (a picture encoded again under VBV reports twice: the last
@@ -129,77 +114,63 @@ def recon_collector(enc):
     return lambda: [got[i] for i in sorted(got)]
 
 
+def assert_golden_record(name, record):
+    """Fail, naming the fields that differ, unless record is the
+    committed entry of golden case `name` (golden_streams.json)."""
+    from x265_tpu_torch.utils import testclip
+    differ = testclip.golden_mismatch(name, record)
+    assert not differ, f"{name}: {differ}"
+
+
 def golden_encoders(name, tmpdir=None, setup=None):
-    """(port encoder, port stream, recons, JAX encoder, JAX stream,
-    frames) of a golden case; fails when the committed entry is not the
-    JAX package's. Both encoders count their VBV re-encodes. tmpdir
-    takes the case's fixture files (testclip.golden_params); each package
-    writes its own (the pass-1 or analysis-save encode of a case runs on
-    the package whose stream it feeds). setup, when given, is called with
-    the port's encoder before it encodes (to attach spies). A GOLDEN_MESH
-    case runs under a mesh in each package: the port's tiles on the CPU,
-    the JAX package's on tests/conftest.py's virtual devices."""
-    from x265_tpu.api import params as JP
-    from x265_tpu.api.encoder import Encoder as JEncoder
+    """(port encoder, port stream, recons, committed entry, frames) of a
+    golden case: the port encodes it on the CPU through
+    testclip.golden_record, and every field of its record must equal the
+    committed entry, the JAX package's (tests/test_torch_golden_fresh.py
+    holds the entries against it). tmpdir takes the case's fixture files
+    (testclip.golden_params; the port writes them). setup, when given, is
+    called with the encoder before it encodes (to attach spies). A
+    GOLDEN_MESH case runs under the port's tiles, all on the CPU."""
     from x265_tpu_torch.api import params as TP
-    from x265_tpu_torch.api.encoder import Encoder as TEncoder
+    from x265_tpu_torch.api.encoder import Encoder
+    from x265_tpu_torch.engine import lookahead
     from x265_tpu_torch.utils import testclip
     frames = testclip.golden_clip(name)
 
     def port(p):
-        return TEncoder(p, device="cpu")
+        return Encoder(p, device="cpu")
     enc = port(testclip.golden_params(name, TP, tmpdir, encoder=port))
     recons = recon_collector(enc)
     if setup is not None:
         setup(enc)
-    stream, qp_maps = testclip.golden_stream(
-        enc, name, frames, mesh=testclip.golden_mesh(name, "cpu"))
-    jmesh = None
-    if name in testclip.GOLDEN_MESH:
-        from x265_tpu.parallel.tiles import make_tile_mesh
-        jmesh = make_tile_mesh(testclip.GOLDEN_MESH[name])
-    jenc = count_reencodes(JEncoder(testclip.golden_params(
-        name, JP, tmpdir, encoder=JEncoder)))
-    ref, ref_qp_maps = testclip.golden_stream(jenc, name, frames,
-                                              mesh=jmesh)
-    gold = testclip.golden_digests()[name]
-    assert gold == {"sha256": hashlib.sha256(ref).hexdigest(),
-                    "bytes": len(ref), "qp_maps": ref_qp_maps}, \
-        f"golden entry of {name} is stale"
-    assert qp_maps == ref_qp_maps
-    return enc, stream, recons(), jenc, ref, frames
+    stream, record = testclip.golden_record(
+        enc, name, frames, mesh=testclip.golden_mesh(name, "cpu"),
+        lookahead=lookahead)
+    assert_golden_record(name, record)
+    return enc, stream, recons(), testclip.golden_digests()[name], frames
 
 
 def switch_streams(build, frames, variants, setup=None):
-    """Encoder.encode's stream of frames for each (package, switches) of
-    variants: the package "torch" (the port, on the CPU) or "jax";
-    build(params_module) makes the Param through that package's
-    api.params (the frame size comes from the frames); the switches are
-    Encoder attributes set after construction (use_native,
-    use_tpu_residual, use_tpu_analysis); setup(enc), when given, runs on
-    every encoder before it encodes."""
-    import importlib
+    """The port's Encoder.encode stream of frames (on the CPU) for each
+    dict of switches in variants: build(params_module) makes the Param
+    through the port's api.params (the frame size comes from the
+    frames); the switches are Encoder attributes set after construction
+    (use_native, use_tpu_residual, use_tpu_analysis); setup(enc), when
+    given, runs on every encoder before it encodes."""
+    from x265_tpu_torch.api import params as TP
+    from x265_tpu_torch.api.encoder import Encoder
     out = []
     h, w = np.shape(frames[0][0])
-    for pkg, switches in variants:
-        root = "x265_tpu_torch" if pkg == "torch" else "x265_tpu"
-        p = build(importlib.import_module(f"{root}.api.params"))
+    for switches in variants:
+        p = build(TP)
         p.width, p.height = w, h
-        Encoder = importlib.import_module(f"{root}.api.encoder").Encoder
-        enc = Encoder(p, device="cpu") if pkg == "torch" else Encoder(p)
+        enc = Encoder(p, device="cpu")
         for k, v in switches.items():
             setattr(enc, k, v)
         if setup is not None:
             setup(enc)
         out.append(enc.encode(frames))
     return out
-
-
-def golden_pair(name):
-    """(port encoder, port stream, recons, JAX stream, frames) of a golden
-    case; fails when the committed entry is not the JAX package's."""
-    enc, stream, recons, _jenc, ref, frames = golden_encoders(name)
-    return enc, stream, recons, ref, frames
 
 
 def assert_decodes_to_recon(stream, recons, n):
@@ -214,8 +185,7 @@ def assert_decodes_to_recon(stream, recons, n):
 def assert_filtered_golden_case(name):
     """fast + zerolatency on a clip with a brightness ramp: deblock, SAO,
     weightp, three references, 64x64 CTUs; with and without AQ."""
-    enc, stream, recons, ref, frames = golden_pair(name)
-    assert stream == ref
+    enc, stream, recons, _gold, frames = golden_encoders(name)
     p = enc.param
     assert (p.deblock and p.sao and p.weightp and p.ref == 3
             and p.ctu_size == 64 and p.sub_me == 2 and p.rd_level == 2)

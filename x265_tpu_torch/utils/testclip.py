@@ -4,6 +4,8 @@ pictures.
 """
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 
 
@@ -116,6 +118,114 @@ def make_dup_cut_clip(w, h, n, seed, dup, cut):
                      (255 - y[::2, ::2] // 2).astype(np.uint8))
     frames[dup] = tuple(pl.copy() for pl in frames[dup - 1])
     return frames
+
+
+def _flat_chroma(y, cb=120):
+    h, w = y.shape
+    return (y, np.full((h // 2, w // 2), cb, np.uint8),
+            np.full((h // 2, w // 2), 130, np.uint8))
+
+
+def make_split_clip(w, h, n, seed):
+    """tests/test_finalizer_split.py's clip: a sine pattern scrolling 3
+    pels a frame over a copy of itself scrolling down, with noise;
+    chroma from luma."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = (128 + 70 * np.sin(xx / 9.0) * np.cos(yy / 7.0)).astype(int)
+    out = []
+    for i in range(n):
+        y = np.clip(np.roll(base, 3 * i, 1) + np.roll(base // 3, i, 0)
+                    + rng.integers(-4, 5, (h, w)), 0, 255)
+        out.append((y.astype(np.uint8),
+                    np.clip(120 + (y[::2, ::2] >> 3), 0, 255)
+                    .astype(np.uint8),
+                    np.full((h // 2, w // 2), 130, np.uint8)))
+    return out
+
+
+def make_split_clip10(w, h, n, seed):
+    """make_split_clip at 10 bits: every sample times four
+    (tests/test_finalizer_split.py's Main10 case)."""
+    return [tuple(pl.astype(np.uint16) * 4 for pl in f)
+            for f in make_split_clip(w, h, n, seed)]
+
+
+def make_rdoq_clip(w, h, n, seed):
+    """tests/test_rdoq.py's clip: a sine pattern scrolling 2 pels a frame
+    with noise, flat chroma."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = (128 + 70 * np.sin(xx / 13.0) * np.cos(yy / 11.0)).astype(int)
+    return [_flat_chroma(np.clip(np.roll(base, 2 * i, 1)
+                                 + rng.integers(-6, 6, (h, w)), 0, 255)
+                         .astype(np.uint8)) for i in range(n)]
+
+
+def make_tskip_clip(w, h, n, seed):
+    """tests/test_tskip.py's screen-content-like frames: a grid of lines
+    and a box scrolling 3 pels a frame, a block of new random "text" in
+    every frame, chroma with the same edges."""
+    rng = np.random.default_rng(seed)
+    out = []
+    base = np.zeros((h, w), np.uint8)
+    base[::8, :] = 250
+    base[:, ::16] = 10
+    base[20:30, 30:60] = 128
+    for i in range(n):
+        y = np.roll(base, i * 3, axis=1).copy()
+        y[40:50, 10:40] = rng.integers(0, 255, (10, 30))
+        out.append((y, np.roll(base, i)[::2, ::2].copy(),
+                    np.full((h // 2, w // 2), 130, np.uint8)))
+    return out
+
+
+def make_scaling_clip(w, h, n, seed):
+    """tests/test_scaling_lists.py's frames: random noise panning
+    (1, 2) pels a frame, flat chroma."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (h + 16, w + 16)).astype(np.uint8)
+    return [_flat_chroma(np.ascontiguousarray(
+        base[i:i + h, i * 2:i * 2 + w])) for i in range(n)]
+
+
+def make_nr_clip(w, h, n, seed):
+    """tests/test_noise_reduction.py's clip: a still random picture under
+    strong fresh noise in every frame, flat chroma."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(40, 210, (h, w)).astype(np.int32)
+    return [_flat_chroma(np.clip(base + rng.integers(-18, 18, (h, w)),
+                                 0, 255).astype(np.uint8))
+            for _ in range(n)]
+
+
+def make_fade_clip(w, h, n, seed):
+    """tests/test_weightp.py's fade: a textured ramp and random chroma
+    scaled by 1 - 0.16 i in frame i."""
+    rng = np.random.default_rng(seed)
+    base = (rng.integers(0, 200, (h, w)) * 0.3 +
+            np.mgrid[0:h, 0:w][1] * 0.9).astype(np.float64)
+    cbb = rng.integers(80, 170, (h // 2, w // 2)).astype(np.float64)
+    crb = rng.integers(80, 170, (h // 2, w // 2)).astype(np.float64)
+    frames = []
+    for i in range(n):
+        g = 1.0 - 0.16 * i
+        frames.append((np.clip(base * g, 0, 255).astype(np.uint8),
+                       np.clip((cbb - 128) * g + 128, 0, 255)
+                       .astype(np.uint8),
+                       np.clip((crb - 128) * g + 128, 0, 255)
+                       .astype(np.uint8)))
+    return frames
+
+
+def make_tmvp_clip(w, h, n, seed):
+    """tests/test_tmvp.py's pan: random noise scrolling 3 pels a frame
+    with fresh noise, flat chroma."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 255, (h, w)).astype(np.int32)
+    return [_flat_chroma(np.clip(np.roll(base, i * 3, axis=1)
+                                 + rng.integers(-5, 5, (h, w)), 0, 255)
+                         .astype(np.uint8)) for i in range(n)]
 
 
 def lift10(frames, seed):
@@ -359,11 +469,18 @@ def clip_pan(W=1280, H=720, n=50, speed=(1.3, 2.7), seed=10):
 
 
 # ---- golden streams -------------------------------------------------------
-# Small seeded encodes whose stream digests (SHA-256 of the JAX package's
-# stream, which the port reproduces byte for byte on the CPU) are kept in
-# golden_streams.json beside this file. A machine that has the port and a
-# GPU but no JAX encodes the same clips and compares digests.
+# Small seeded encodes whose records (golden_record: the SHA-256 of the
+# JAX package's stream, which the port reproduces byte for byte, its QP
+# maps, picture types and QPs, ...) are kept in golden_streams.json
+# beside this file. The port's tests and a machine with a GPU but no JAX
+# encode the same clips and compare their records with the committed
+# ones; tests/test_torch_golden_fresh.py holds the committed records
+# against the JAX package, and `python -m tools.golden_record` writes them.
 
+# the medium-preset base of the JAX package's writer tests at 96x64:
+# fixed mini-GOPs, no scene cut, no AQ, cuTree or SAO, QP 30
+_WRITER_OPTS = {"bframes": "0", "b-adapt": "0", "scenecut": "0",
+                "aq-mode": "0", "cutree": "0", "sao": "0", "qp": "30"}
 GOLDEN_CASES = {
     # name: (preset, tune, options through param_parse, clip maker, seed)
     "ultrafast_zerolatency": (
@@ -513,6 +630,40 @@ GOLDEN_CASES = {
     "mesh4_medium_cpu_residual": (
         "medium", None, {"qp": "30", "bframes": "2", "rc-lookahead": "0",
                          "scenecut": "0", "slices": "4"}, "make_clip", 29),
+    # the JAX package's writer and finalizer tests on their own clips
+    # (176x144 or 96x64): the finalizer split's four configurations and
+    # its Main10 one (tests/test_finalizer_split.py), the Python writer
+    # (GOLDEN_ATTRS) under transform skip and scaling lists
+    # (tests/test_tskip.py, test_scaling_lists.py), noise reduction,
+    # weightp, TMVP (test_noise_reduction.py, test_weightp.py,
+    # test_tmvp.py) and x265's slow preset (test_rdoq.py)
+    "split_medium": ("medium", None, {"qp": "30"}, "make_split_clip", 7),
+    "split_ippp": ("medium", None, {"qp": "30", "bframes": "0", "sao": "0",
+                                    "aq-mode": "0", "cutree": "0"},
+                   "make_split_clip", 7),
+    "split_rdoq_ref2": ("medium", None, {"qp": "30", "rdoq-level": "2",
+                                         "ref": "2"}, "make_split_clip", 7),
+    "split_nosdh_nodeblock": ("medium", None, {"qp": "30", "signhide": "0",
+                                               "deblock": "0"},
+                              "make_split_clip", 7),
+    "split_main10": ("medium", None, {"qp": "30", "output-depth": "10",
+                                      "bframes": "2"},
+                     "make_split_clip10", 7),
+    "writer_tskip": ("medium", None, {**_WRITER_OPTS, "bframes": "1",
+                                      "rdoq-level": "2", "tskip": "1"},
+                     "make_tskip_clip", 3),
+    "writer_scaling_list": ("medium", None, {
+        **_WRITER_OPTS, "bframes": "1", "rdoq-level": "2",
+        "scaling-list": "default"}, "make_scaling_clip", 11),
+    "writer_nr": ("medium", None, {**_WRITER_OPTS, "nr-intra": "500",
+                                   "nr-inter": "500"}, "make_nr_clip", 6),
+    "writer_weightp": ("medium", None, {**_WRITER_OPTS, "weightp": "1"},
+                       "make_fade_clip", 3),
+    "writer_tmvp": ("medium", None, {**_WRITER_OPTS, "bframes": "2",
+                                     "b-pyramid": "0", "tmvp": "1"},
+                    "make_tmvp_clip", 4),
+    "writer_slow_rdoq": ("slow", None, {"qp": "30", "bframes": "2"},
+                         "make_rdoq_clip", 5),
 }
 # Encoder attributes a golden case sets after construction, in both
 # packages (testclip.golden_stream sets them)
@@ -523,6 +674,12 @@ GOLDEN_ATTRS = {
     "fast_zerolatency_rdoq_py": {"use_native": False},
     "medium_abr_cpu_residual": {"use_tpu_residual": False},
     "mesh4_medium_cpu_residual": {"use_tpu_residual": False},
+    "writer_tskip": {"use_native": False, "use_tpu_residual": False},
+    "writer_scaling_list": {"use_native": False, "use_tpu_residual": False},
+    "writer_nr": {"use_native": False},
+    "writer_weightp": {"use_native": False},
+    "writer_tmvp": {"use_native": False},
+    "writer_slow_rdoq": {"use_native": False},
 }
 # golden cases encoded under a mesh of this many tiles: golden_stream
 # attaches the mesh its caller builds for the package (the port's
@@ -545,13 +702,27 @@ GOLDEN_FRAMES = {"fast_crf": (11, None), "medium_crf_cut": (11, 7),
                  "fast_crf_notpu": (11, None),
                  "medium_abr_cpu_residual": (11, None),
                  "mesh4_allintra_lossless": (2, None),
-                 "mesh4_medium_cpu_residual": (4, None)}
+                 "mesh4_medium_cpu_residual": (4, None),
+                 "split_medium": (6, None), "split_ippp": (6, None),
+                 "split_rdoq_ref2": (6, None),
+                 "split_nosdh_nodeblock": (6, None),
+                 "split_main10": (4, None), "writer_tskip": (3, None),
+                 "writer_scaling_list": (3, None), "writer_nr": (4, None),
+                 "writer_weightp": (3, None), "writer_tmvp": (5, None),
+                 "writer_slow_rdoq": (4, None)}
 GOLDEN_DUP = 2                       # the duplicate of make_dup_cut_clip
 # cases of their own size: 120 lines are 7.5 rows of 16, so the bottom
 # 8 lines are coded as 8x8 CUs, whose 4x4 chroma TBs transform skip can
 # take (the analysis decides 16x16 blocks elsewhere)
 GOLDEN_SIZES = {"medium_tskip": (192, 120),
-                "mesh4_allintra_lossless": (128, 64)}
+                "mesh4_allintra_lossless": (128, 64),
+                **{k: (176, 144) for k in (
+                    "split_medium", "split_ippp", "split_rdoq_ref2",
+                    "split_nosdh_nodeblock", "split_main10",
+                    "writer_slow_rdoq")},
+                **{k: (96, 64) for k in (
+                    "writer_tskip", "writer_scaling_list", "writer_nr",
+                    "writer_weightp", "writer_tmvp")}}
 # the qpfile of medium_qpfile_zones (display index, type, QP): a B
 # picture's QP, a forced keyframe (a CRA under open GOP), an IDR that
 # closes the GOP, and a QP on a picture whose P type is not forced
@@ -569,20 +740,31 @@ GOLDEN_LADDER = {"ladder_192x128": (192, 128, 150),
 # not headers + encode_frame per picture + flush
 GOLDEN_PIPELINED = ("ultrafast_lossless_allintra", "medium_allintra_crf",
                     "main10_lossless_allintra", "ultrafast_lossless_wpp")
+# facts a golden entry holds beyond every case's, for the cases whose
+# tests read them (golden_record): "nr", the noise-reduction sums after
+# the last picture; "cutree", each cuTree propagation's offsets; "stats",
+# the pass-1 stats file a two-pass case reads
+GOLDEN_EXTRA = {"medium_nr_slices2": ("nr",), "fast_crf": ("cutree",),
+                "medium_twopass": ("stats",)}
 
 
 def golden_clip(name):
+    """The case's frames: its clip maker at its size, frame count and
+    seed; an 8-bit clip of an output-depth 10 case lifted by lift10."""
     w, h, n = GOLDEN_SIZE
     w, h = GOLDEN_SIZES.get(name, (w, h))
     n, cut = GOLDEN_FRAMES.get(name, (n, GOLDEN_CUT))
-    maker = {"make_clip": make_clip, "make_ramp_clip": make_ramp_clip,
-             "make_screen_clip": make_screen_clip,
-             "make_cut_clip": lambda *a: make_cut_clip(*a, cut=cut),
-             "make_dup_cut_clip": lambda *a: make_dup_cut_clip(
-                 *a, dup=GOLDEN_DUP, cut=cut)}
+    maker = {f.__name__: f for f in (
+        make_clip, make_ramp_clip, make_screen_clip, make_split_clip,
+        make_split_clip10, make_rdoq_clip, make_tskip_clip,
+        make_scaling_clip, make_nr_clip, make_fade_clip, make_tmvp_clip)}
+    maker["make_cut_clip"] = lambda *a: make_cut_clip(*a, cut=cut)
+    maker["make_dup_cut_clip"] = lambda *a: make_dup_cut_clip(
+        *a, dup=GOLDEN_DUP, cut=cut)
     seed = GOLDEN_CASES[name][4]
     frames = maker[GOLDEN_CASES[name][3]](w, h, n, seed)
-    if GOLDEN_CASES[name][2].get("output-depth") == "10":
+    if (GOLDEN_CASES[name][2].get("output-depth") == "10"
+            and frames[0][0].dtype == np.uint8):
         frames = lift10(frames, seed)
     return frames
 
@@ -683,10 +865,87 @@ def golden_stream(enc, name, frames, mesh=None):
     return stream + enc.flush(), qp_maps
 
 
+def golden_record(enc, name, frames, mesh=None, lookahead=None):
+    """(stream, entry) of a golden case encoded by enc, an Encoder of
+    either package, through golden_stream (mesh as there). The entry is
+    what golden_streams.json keeps for the case: the stream's sha256 and
+    length, the QP maps, the picture types and QPs in encode order
+    (frame_stats), the display indices a scene cut was detected at, the
+    pictures coded again under VBV, get_ref_frame_list() after the flush,
+    and the facts GOLDEN_EXTRA names for the case; each value as the JSON
+    file holds it (golden_mismatch compares two). lookahead is the
+    encoder's package's engine.lookahead module, whose cutree_propagate
+    a "cutree" case records (the caller passes it, as golden_ladder's
+    does its ladder module)."""
+    extra = GOLDEN_EXTRA.get(name, ())
+    fact = {}
+    if "stats" in extra:                 # pass 2 reads pass 1's file
+        with open(enc.param.stats_file, "rb") as f:
+            fact["stats_sha256"] = hashlib.sha256(f.read()).hexdigest()
+    reencodes = [0]
+    reencode_qp = enc.rc.reencode_qp
+
+    def counted(bits):
+        rq = reencode_qp(bits)
+        reencodes[0] += rq is not None
+        return rq
+    enc.rc.reencode_qp = counted
+    if "cutree" in extra:
+        if lookahead is None:
+            raise ValueError(f"golden case {name} records cuTree: pass the "
+                             "encoder's engine.lookahead module")
+        propagate = lookahead.cutree_propagate
+        fact["cutree"] = []
+
+        def recorded(records, *a, **kw):
+            off = propagate(records, *a, **kw)
+            fact["cutree"].append([len(records), None if off is None
+                                   else array_digest(off, np.float64)])
+            return off
+        lookahead.cutree_propagate = recorded
+    try:
+        stream, qp_maps = golden_stream(enc, name, frames, mesh=mesh)
+    finally:
+        if "cutree" in extra:
+            lookahead.cutree_propagate = propagate
+    if "nr" in extra:
+        fact["nr"] = {k: array_digest(enc._nr[k], np.uint64)
+                      for k in ("sum", "cnt")}
+    entry = {"sha256": hashlib.sha256(stream).hexdigest(),
+             "bytes": len(stream), "qp_maps": qp_maps,
+             "types": "".join(s["type"] for s in enc.frame_stats),
+             "qps": [s["qp"] for s in enc.frame_stats],
+             "scenecut_frames": sorted(enc._scenecut_frames),
+             "vbv_reencodes": reencodes[0],
+             "ref_frame_list": enc.get_ref_frame_list(), **fact}
+    return stream, _as_json(entry)
+
+
+def array_digest(a, dtype):
+    """{"shape", "sha256"} of an array's samples as `dtype` (how a golden
+    entry holds an array)."""
+    a = np.ascontiguousarray(np.asarray(a), dtype=dtype)
+    return {"shape": list(a.shape),
+            "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+
+
+def _as_json(x):
+    """x as json.load gives it back: lists for tuples, str dict keys,
+    Python numbers for numpy scalars."""
+    if isinstance(x, dict):
+        return {str(k): _as_json(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_as_json(v) for v in x]
+    if isinstance(x, np.generic):
+        return x.item()
+    return x
+
+
 def golden_ladder(ladder_module, **kw):
-    """({case: stream}, ladder) of the golden ladder: the source clip
-    pushed through the given package's api.ladder.AbrLadder (kw: its
-    device)."""
+    """({case: stream}, {case: entry}, ladder) of the golden ladder: the
+    source clip pushed through the given package's api.ladder.AbrLadder
+    (kw: its device). A rendition's entry holds its stream's sha256 and
+    length, qp_maps null, and its encoder's get_stats()."""
     w, h, n, seed = GOLDEN_LADDER_SOURCE
     names = list(GOLDEN_LADDER)
     ladder = ladder_module.AbrLadder(
@@ -695,14 +954,29 @@ def golden_ladder(ladder_module, **kw):
     for f in make_clip(w, h, n, seed):
         ladder.push(f)
     out = ladder.finish()
-    return {k: out[i] for i, k in enumerate(names)}, ladder
+    stats = ladder.stats()
+    streams = {k: out[i] for i, k in enumerate(names)}
+    entries = {k: _as_json({"sha256": hashlib.sha256(out[i]).hexdigest(),
+                            "bytes": len(out[i]), "qp_maps": None,
+                            "stats": stats[i]})
+               for i, k in enumerate(names)}
+    return streams, entries, ladder
 
 
 def golden_digests():
-    """{name: {"sha256": ..., "bytes": ...}} from golden_streams.json."""
+    """{name: entry} from golden_streams.json (golden_record's entries,
+    golden_ladder's for the renditions)."""
     import json
     import os
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "golden_streams.json")
     with open(path, encoding="utf-8") as f:
         return json.load(f)["streams"]
+
+
+def golden_mismatch(name, entry):
+    """The fields in which entry differs from the committed entry of
+    case `name`, sorted (a field on one side only differs)."""
+    gold = golden_digests()[name]
+    return sorted(k for k in gold.keys() | entry.keys()
+                  if gold.get(k) != entry.get(k))
