@@ -27,7 +27,7 @@ def test_tskip_sao_recompute_golden(monkeypatch):
         # positional: a[3] the CU sizes, a[6] the inter map, a[11] refs
         cu8 = ((np.asarray(a[3]) == 3) & (np.asarray(a[6]) != 0)
                if a[6] is not None else None)
-        calls.append((kw["collect"] is None, kw["sao_params"] is not None,
+        calls.append((not kw["collect"], kw["sao_params"] is not None,
                       kw["pre"], cu8, a[11]))
         return orig(*a, **kw)
     monkeypatch.setattr(native, "encode_slice_px", spy)

@@ -85,8 +85,8 @@ def get_lib():
             ctypes.c_void_p, ctypes.c_void_p,                    # sao c offsets
             ctypes.c_void_p, ctypes.c_void_p,                    # qp map in/out
             ctypes.c_int, ctypes.c_int,                          # bit depth, rdoq
-            ctypes.c_void_p, ctypes.c_int,                       # out, cap
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # recon out
+            ctypes.c_void_p,                                     # scratch
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # recon in/out
             ctypes.c_void_p,                                     # cbf4 out
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,         # weights, denoms
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # col dir/mv/refpoc
@@ -95,10 +95,7 @@ def get_lib():
             ctypes.c_int, ctypes.c_int,                          # ctb begin/count
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # pre lvl y/cb/cr
             ctypes.c_void_p, ctypes.c_void_p,                    # pre cbf8/has8
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # pre rec y/cb/cr
             ctypes.c_int,                                        # collect_only
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # exp lvl y/cb/cr
-            ctypes.c_void_p, ctypes.c_void_p,                    # exp cbf8/has8
             ctypes.c_int,                                        # scaling_lists
             ctypes.c_int,                                        # tskip
             ctypes.c_void_p,                                     # rate consts
@@ -106,7 +103,14 @@ def get_lib():
             ctypes.c_void_p, ctypes.c_int,                       # ss sizes out, cap
             ctypes.c_int,                                        # psy_rdoq_fx
             ctypes.c_void_p, ctypes.c_int,                       # pre tusplit8, max_trafo_inter
+            ctypes.c_void_p,                                     # cu counts
         ]
+        lib.writer_scratch_new.restype = ctypes.c_void_p
+        lib.writer_scratch_new.argtypes = []
+        lib.writer_scratch_free.restype = None
+        lib.writer_scratch_free.argtypes = [ctypes.c_void_p]
+        lib.writer_scratch_bytes.restype = ctypes.c_void_p
+        lib.writer_scratch_bytes.argtypes = [ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -154,6 +158,28 @@ def encode_slice_intra(src_y, src_cb, src_cr, cu_log2_map, luma_mode8,
     return data
 
 
+class Scratch:
+    """What the native walk keeps between calls: its 4x4-grid maps and
+    CABAC output keep their storage, so a walk in steady state allocates
+    nothing. One per encoder and slice band (bands walk on threads: never
+    hand one Scratch to two walks at once)."""
+
+    def __init__(self):
+        self._lib = get_lib()
+        self.ptr = self._lib.writer_scratch_new()
+
+    def __del__(self):
+        ptr, self.ptr = getattr(self, "ptr", None), None
+        if ptr:
+            self._lib.writer_scratch_free(ptr)
+
+    def __copy__(self):             # a copy shares no storage (no double free)
+        return Scratch()
+
+    def __deepcopy__(self, memo):
+        return Scratch()
+
+
 def encode_slice_px(src_y, src_cb, src_cr, cu_log2_map, luma_mode8,
                     chroma_mode8, inter8, dir8, mv8, slice_type,
                     max_merge_cand, refs, ref_poc, cur_poc, pad_luma,
@@ -163,9 +189,13 @@ def encode_slice_px(src_y, src_cb, src_cr, cu_log2_map, luma_mode8,
                     qp_map=None, bit_depth=8, ref8=None, rdoq_level=0,
                     weights=None, col=None, col_from_l0=1, nr=None,
                     pre=None, ctb_begin=0, ctb_count=-1,
-                    collect=None, scaling_lists=False, tskip=False,
-                    wpp=False, psy_rdoq_fx=0, tu_inter_depth=1):
-    """Unified native I/P/B slice encode.
+                    collect=False, scaling_lists=False, tskip=False,
+                    wpp=False, psy_rdoq_fx=0, tu_inter_depth=1,
+                    recon=None, want_recon=True, cbf4_out=None, qp_out=None,
+                    scratch=None, cu_counts=None):
+    """Unified native I/P/B slice encode. It works in place: the planes
+    and maps it writes (recon, pre's planes, cbf4_out, qp_out) are
+    written where they are, never copied.
 
     refs: ([(y,cb,cr) padded int16 per ref] per list), up to 4 refs/list.
     weights: optional (wp[4,3,3] int32 flag/w/off per L0 ref x plane,
@@ -176,14 +206,30 @@ def encode_slice_px(src_y, src_cb, src_cr, cu_log2_map, luma_mode8,
     nr: optional (offsets u16[16,1024], sums u32[16,1024], counts u32[16])
     DCT-domain noise reduction; sums/counts accumulate in place.
     pre: optional precomputed residual tensors from the device pipeline
-    (models/residual.py) — dict with lvl_y/lvl_cb/lvl_cr int16 planes,
-    cbf8 uint8 [h8,w8] (bit0=y,1=cb,2=cr), has8 uint8 [h8,w8], rec_y/
-    rec_cb/rec_cr int16 recon planes. CUs with has8=1 are emit-only.
-    collect: optional dict with the SAME keys minus rec_* — the walk
-    runs with CABAC disabled (collect-only) and fills these buffers, so
-    a later emit-only call can replay them via `pre` (the single-CABAC
+    (models/inter_residual.build_inter_pre) — dict with lvl_y/lvl_cb/
+    lvl_cr int16 planes, cbf8 uint8 [h8,w8] (bit0=y,1=cb,2=cr), has8
+    uint8 [h8,w8], optionally tusplit8 uint8 [h8,w8]. CUs with has8=1 are
+    emit-only.
+    collect: the walk runs with CABAC disabled (collect-only) and exports
+    every TB it computes into pre's planes (C-contiguous, of those
+    dtypes; all-zero ones where nothing is precomputed), so a later
+    emit-only call replays every TB from the same dict (the single-CABAC
     SAO pipeline; sao.cpp:1225 derives SAO from stats, not re-encode).
-    Returns (bytes, recon, cbf4, qp_actual).
+    recon: (y, cb, cr) int16 C-contiguous planes the walk reconstructs
+    into: the precomputed CUs' recon is there already, the walk writes
+    every other CU's. None: zeroed planes of its own.
+    want_recon=False: an emit-only replay (every CU precomputed), which
+    writes no sample and no map: recon, cbf4 and qp_actual come back None.
+    cbf4_out (uint8 [h4,w4]), qp_out (int32 [h4,w4]): the maps to write
+    the band's entries into (the bands of one picture share them); None:
+    maps of its own.
+    scratch: a Scratch (None: one for this call).
+    cu_counts: optional int32 [2] array; += the CUs walked and those of
+    them reconstructed here (not from pre).
+    The source planes are read as uint16: hand them over in that form to
+    save a conversion a call.
+    Returns (bytes, recon, cbf4 (bool), qp_actual), and the WPP
+    substream sizes after them under wpp.
     """
     lib = get_lib()
     h, w = src_y.shape
@@ -191,6 +237,8 @@ def encode_slice_px(src_y, src_cb, src_cr, cu_log2_map, luma_mode8,
     y = c(src_y, dtype=np.uint16)
     cbp = c(src_cb, dtype=np.uint16)
     crp = c(src_cr, dtype=np.uint16)
+    if scratch is None:
+        scratch = Scratch()
     cmap = c(cu_log2_map, dtype=np.int32)
     lmap = c(luma_mode8, dtype=np.int32)
     cmode_p = None
@@ -216,13 +264,30 @@ def encode_slice_px(src_y, src_cb, src_cr, cu_log2_map, luma_mode8,
     d8 = c(dir8, dtype=np.int32) if dir8 is not None else None
     m8 = c(mv8, dtype=np.int32) if mv8 is not None else None
     r8 = c(ref8, dtype=np.int32) if ref8 is not None else None
-    cap = w * h * 4 + 4096
-    out = np.empty(cap, dtype=np.uint8)
-    ry = np.empty((h, w), dtype=np.int16)
-    rcb = np.empty((h // 2, w // 2), dtype=np.int16)
-    rcr = np.empty((h // 2, w // 2), dtype=np.int16)
     h4, w4 = (h + 3) // 4, (w + 3) // 4
-    cbf4 = np.zeros((h4, w4), dtype=np.uint8)
+
+    def inplace(a, shape, dt, what):
+        if not (a.dtype == dt and a.shape == shape
+                and a.flags["C_CONTIGUOUS"] and a.flags["WRITEABLE"]):
+            raise ValueError(f"{what}: a writeable C-contiguous "
+                             f"{np.dtype(dt).name} array of shape {shape}")
+        return a
+    cbf4 = qp_actual = None
+    rec_ptrs = [None] * 3
+    if want_recon:
+        if recon is None:
+            recon = (np.zeros((h, w), np.int16),
+                     np.zeros((h // 2, w // 2), np.int16),
+                     np.zeros((h // 2, w // 2), np.int16))
+        recon = tuple(inplace(pl, s, np.int16, "recon") for pl, s in zip(
+            recon, ((h, w), (h // 2, w // 2), (h // 2, w // 2))))
+        rec_ptrs = [pl.ctypes.data for pl in recon]
+        cbf4 = (np.empty((h4, w4), np.uint8) if cbf4_out is None
+                else inplace(cbf4_out, (h4, w4), np.uint8, "cbf4_out"))
+        qp_actual = (np.empty((h4, w4), np.int32) if qp_out is None
+                     else inplace(qp_out, (h4, w4), np.int32, "qp_out"))
+    else:
+        recon = None
     sao_ptrs = [None] * 8
     if sao_params is not None:
         sp = sao_params
@@ -232,22 +297,23 @@ def encode_slice_px(src_y, src_cb, src_cr, cu_log2_map, luma_mode8,
             a = c(a, dtype=np.int32)
             keep.append(a)
             sao_ptrs[i] = a.ctypes.data
-    qp_actual = np.zeros(h4 * w4, dtype=np.int32)
     wp_ptr, wp_ld, wp_cd = None, 0, 0
     if weights is not None:
         wp_arr = c(weights[0], dtype=np.int32)
         keep.append(wp_arr)
         wp_ptr, wp_ld, wp_cd = wp_arr.ctypes.data, weights[1], weights[2]
-    pre_ptrs = [None] * 8
+    pre_ptrs = [None] * 5
     tus_ptr = None
+    if collect and pre is None:
+        raise ValueError("a collect-only walk exports into pre's planes")
     if pre is not None:
-        order = ("lvl_y", "lvl_cb", "lvl_cr", "cbf8", "has8",
-                 "rec_y", "rec_cb", "rec_cr")
-        dts = (np.int16, np.int16, np.int16, np.uint8, np.uint8,
-               np.int16, np.int16, np.int16)
-        for i, (k, dt) in enumerate(zip(order, dts)):
-            a = c(pre[k], dtype=dt)
-            keep.append(a)
+        h8, w8 = h >> 3, w >> 3
+        shapes = ((h, w), (h // 2, w // 2), (h // 2, w // 2), (h8, w8),
+                  (h8, w8))
+        order = ("lvl_y", "lvl_cb", "lvl_cr", "cbf8", "has8")
+        dts = (np.int16, np.int16, np.int16, np.uint8, np.uint8)
+        for i, (k, s, dt) in enumerate(zip(order, shapes, dts)):
+            a = inplace(pre[k], s, dt, f"pre[{k!r}]")
             pre_ptrs[i] = a.ctypes.data
         if pre.get("tusplit8") is not None:
             ta = c(pre["tusplit8"], dtype=np.uint8)
@@ -287,16 +353,8 @@ def encode_slice_px(src_y, src_cb, src_cr, cu_log2_map, luma_mode8,
     if wpp:
         hc = -(-h // (1 << ctb_log2))
         ss_sizes = np.zeros(hc, dtype=np.int32)
-    collect_only = 0
-    exp_ptrs = [None] * 5
-    if collect is not None:
-        collect_only = 1
-        order = ("lvl_y", "lvl_cb", "lvl_cr", "cbf8", "has8")
-        dts = (np.int16, np.int16, np.int16, np.uint8, np.uint8)
-        for i, (k, dt) in enumerate(zip(order, dts)):
-            a = collect[k]
-            assert a.dtype == dt and a.flags["C_CONTIGUOUS"], k
-            exp_ptrs[i] = a.ctypes.data
+    if cu_counts is not None:
+        cu_counts = inplace(cu_counts, (2,), np.int32, "cu_counts")
     n = lib.encode_slice_px(
         y.ctypes.data, cbp.ctypes.data, crp.ctypes.data, w, h,
         cmap.ctypes.data, lmap.ctypes.data, cmode_p,
@@ -312,23 +370,23 @@ def encode_slice_px(src_y, src_cb, src_cr, cu_log2_map, luma_mode8,
         int(lossless), int(sign_hiding), int(strong_smooth),
         cb_qp_off, cr_qp_off,
         int(sao_luma), int(sao_chroma), *sao_ptrs,
-        qmp, qp_actual.ctypes.data,
-        bit_depth, rdoq_level,
-        out.ctypes.data, cap,
-        ry.ctypes.data, rcb.ctypes.data, rcr.ctypes.data,
-        cbf4.ctypes.data, wp_ptr, wp_ld, wp_cd,
+        qmp, None if qp_actual is None else qp_actual.ctypes.data,
+        bit_depth, rdoq_level, scratch.ptr, *rec_ptrs,
+        None if cbf4 is None else cbf4.ctypes.data, wp_ptr, wp_ld, wp_cd,
         cd_ptr, cm_ptr, cp_ptr, col_poc, int(col_from_l0),
         nro_p, nrs_p, nrc_p, int(ctb_begin), int(ctb_count), *pre_ptrs,
-        collect_only, *exp_ptrs, int(scaling_lists), int(tskip),
+        int(bool(collect)), int(scaling_lists), int(tskip),
         rc_ptr, int(wpp),
         ss_sizes.ctypes.data if ss_sizes is not None else None,
         len(ss_sizes) if ss_sizes is not None else 0,
-        int(psy_rdoq_fx), tus_ptr, int(tu_inter_depth) - 1)
+        int(psy_rdoq_fx), tus_ptr, int(tu_inter_depth) - 1,
+        None if cu_counts is None else cu_counts.ctypes.data)
     if n < 0:
         raise RuntimeError(f"native slice writer failed (code {n})")
-    res = (out[:n].tobytes(),
-           (ry.astype(np.int32), rcb.astype(np.int32), rcr.astype(np.int32)),
-           cbf4.astype(bool), qp_actual.reshape(h4, w4))
+    data = (ctypes.string_at(lib.writer_scratch_bytes(scratch.ptr), n)
+            if n else b"")
+    res = (data,
+           recon, None if cbf4 is None else cbf4.view(bool), qp_actual)
     if wpp:
         return res + (ss_sizes.tolist(),)
     return res

@@ -49,10 +49,12 @@ SPANS = ("encode_frame", "picture") + SYNC_STAGES + (
 # tried and those whose decision it changed; rdoq.tbs the TBs handed to
 # the RDOQ, rqt.tried / rqt.won the CUs the explicit RQT level re-ran /
 # that took its split (all from host-side sizes and the host copy of the
-# split map: no counter synchronises)
+# split map: no counter synchronises); writer.cus / writer.host_cus the
+# CUs a picture's first native walk codes / reconstructs on the host
 COUNTERS = ("rd.adopt16.tried", "rd.adopt16.won", "rd.promote.tried",
             "rd.promote.won", "rd.intra32.tried", "rd.intra32.won",
-            "vbv.reencodes", "rdoq.tbs", "rqt.tried", "rqt.won")
+            "vbv.reencodes", "rdoq.tbs", "rqt.tried", "rqt.won",
+            "writer.cus", "writer.host_cus")
 
 
 @dataclass(slots=True, eq=False)
