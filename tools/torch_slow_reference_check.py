@@ -1,6 +1,6 @@
-"""Holds two of the slow preset's mechanisms, as the timed path of the cell
-slow_1080p.crowd runs them on the card, to the benchmark's plain
-reference (encbench/reference/):
+"""Holds the slow presets' mechanisms, as the timed path of the cell
+slow_1080p.crowd or slower_1080p.crowd runs them on the card, to the
+benchmark's plain reference (encbench/reference/):
 
 - RDOQ (models/residual._rdoq_x64): every level of a sample of the TBs
   handed to it that hold a level, against reference.rdoq.rdoq_block:
@@ -8,20 +8,23 @@ reference (encbench/reference/):
 - the dense integer search (engine/me._int_stage at S=16, R=57): the
   motion vector of a sample of the blocks it searched against
   reference.dense.search_block, and the SAD at it, read back from the
-  kernel's float32 cost: exact; the cost within 2^-23 of the reference's.
-
-The cell runs x265's slow at tu-inter-depth 1, so the explicit inter RQT
-does not run there; tests/test_torch_slow_reference.py holds it to
-reference.rqt on the CPU.
+  kernel's float32 cost: exact; the cost within 2^-23 of the reference's;
+- the explicit inter RQT (models/inter_residual._rqt_split, tu-inter-depth
+  2: slower only): the split choice of a sample of the CUs it decided,
+  against reference.rqt.split_decision wherever the two costs differ by
+  more than reference.rqt.RQT_TIE; at least 512 such CUs.
 
 It encodes the cell's first 30 pictures from its IDR (its configuration,
 its pictures from the seed: encbench.spec, encbench.frames), then
 flushes; the samples are drawn from the seed. A control breaks the path
 under the wrappers, and the check must then fail: ``rdoq_plain`` hands
 back the deadzone levels, ``psy_off`` drops the psy-RDOQ credit,
-``no_mvcost`` runs the dense sweep without its mv cost.
+``no_mvcost`` runs the dense sweep without its mv cost, ``rqt_flip``
+inverts the RQT's choice, ``rqt_no_tree`` drops the split's tree charge
+(inter_residual.RQT_TREE_BINS).
 
-    python3 tools/torch_slow_reference_check.py --seed 5 [--control psy_off]
+    python3 tools/torch_slow_reference_check.py --seed 5 \
+        [--cell slower_1080p.crowd] [--control psy_off]
 
 Prints one JSON line; exit 0 when every comparison holds, 1 otherwise,
 2 without a CUDA device.
@@ -42,13 +45,18 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from encbench import frames, spec  # noqa: E402
-from encbench.reference import dense, rdoq  # noqa: E402
+from encbench.reference import dense, rdoq, rqt  # noqa: E402
 
-CELL = "slow_1080p.crowd"
+CELLS = ("slow_1080p.crowd", "slower_1080p.crowd")
 PICTURES = 30
-# samples kept: RDOQ TBs, dense-search blocks; lanes drawn from each call
-RDOQ_TBS, DENSE_BLOCKS, PER_CALL = 2048, 96, 8
-CONTROLS = ("none", "rdoq_plain", "psy_off", "no_mvcost")
+# samples kept: RDOQ TBs, dense-search blocks, RQT CUs; lanes drawn from
+# each call (the RQT is called once a picture and CU size: more lanes)
+RDOQ_TBS, DENSE_BLOCKS, RQT_CUS, PER_CALL, RQT_PER_CALL = \
+    2048, 96, 4096, 8, 128
+# the RQT decisions compared (outside the tie margin) a pass needs
+RQT_LEAST = 512
+CONTROLS = ("none", "rdoq_plain", "psy_off", "no_mvcost", "rqt_flip",
+            "rqt_no_tree")
 
 
 class Reservoir:
@@ -85,15 +93,16 @@ def cpu(t):
 def install(control, rng):
     """Wrap the entry points; returns (reservoirs, patched)."""
     from x265_tpu_torch.engine import me
-    from x265_tpu_torch.models import residual
+    from x265_tpu_torch.models import inter_residual, residual
     from x265_tpu_torch.ops.cuda_kernels import sad_sweep_argmin
     res = {"rdoq": Reservoir(RDOQ_TBS, rng),
-           "dense": Reservoir(DENSE_BLOCKS, rng)}
+           "dense": Reservoir(DENSE_BLOCKS, rng),
+           "rqt": Reservoir(RQT_CUS, rng)}
     patched, lam_now = [], []
 
-    def lanes(N, among=None):
+    def lanes(N, among=None, k=PER_CALL):
         pool = np.arange(N) if among is None else among
-        return rng.choice(pool, size=min(len(pool), PER_CALL),
+        return rng.choice(pool, size=min(len(pool), k),
                           replace=False).tolist()
 
     orig_rdoq = residual._rdoq_x64
@@ -150,9 +159,29 @@ def install(control, rng):
             res["dense"].offer(lambda b=b: block(b))
         return mv
 
+    orig_split = inter_residual._rqt_split
+
+    def rqt_entry(resid, whole, quads, qpy, rate_kk):
+        split = orig_split(resid, whole, quads, qpy, rate_kk)
+        if control == "rqt_flip":
+            split = ~split
+        kl, kc = cpu(rate_kk).tolist()
+        for i in lanes(qpy.shape[0], k=RQT_PER_CALL):
+            res["rqt"].offer(lambda i=i: (
+                [cpu(r[i]) for r in resid],
+                [(cpu(lv[i]), cpu(rr[i])) for lv, rr in whole],
+                [(cpu(lv[i]), cpu(rr[i])) for lv, rr in quads],
+                int(qpy[i]), kl, kc, bool(split[i])))
+        return split
+
     patch(orig_rdoq, rdoq_entry, patched)
     patch(orig_fused, fused_entry, patched)
     patch(orig_int, int_entry, patched)
+    patch(orig_split, rqt_entry, patched)
+    if control == "rqt_no_tree":
+        patched.append((inter_residual, "RQT_TREE_BINS",
+                        inter_residual.RQT_TREE_BINS))
+        inter_residual.RQT_TREE_BINS = 0.0
     return res, patched
 
 
@@ -190,16 +219,31 @@ def check_dense(kept):
             "cost_within_f32": gap <= 2.0 ** -23}
 
 
+def check_rqt(kept):
+    bad = ties = splits = 0
+    for resid, whole, quads, qp, kl, kc, got in kept:
+        want, a, b = rqt.split_decision(resid, whole, quads, qp, kl, kc)
+        if abs(a - b) <= rqt.RQT_TIE * max(abs(a), abs(b)):
+            ties += 1
+            continue
+        splits += want
+        bad += got != want
+    return {"cus": len(kept), "compared": len(kept) - ties, "ties": ties,
+            "split": splits, "mismatched": bad}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--cell", choices=CELLS, default=CELLS[0])
     ap.add_argument("--control", choices=CONTROLS, default="none")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     from x265_tpu_torch.api.encoder import Encoder
-    cell = spec.load_cell(CELL)
+    from x265_tpu_torch.utils import profiling
+    cell = spec.load_cell(a.cell)
     cfg, mix = cell["config_spec"], cell["traffic_spec"]
     pool = frames.make_pool(mix, cfg["width"], cfg["height"], a.seed,
                             cfg["bit_depth"])
@@ -207,6 +251,7 @@ def main(argv=None):
                               cell.get("window", {}).get("start", 0))
     rng = np.random.default_rng([a.seed, 0x51])
     res, patched = install(a.control, rng)
+    profiling.reset()
     t = time.perf_counter()
     try:
         enc = Encoder(spec.params(cfg), device="cuda")
@@ -219,18 +264,28 @@ def main(argv=None):
         for m, k, orig in reversed(patched):
             setattr(m, k, orig)
     encode_s = time.perf_counter() - t
+    counts = profiling.counters()
     t = time.perf_counter()
-    out = {"cell": CELL, "seed": a.seed, "pictures": PICTURES,
+    out = {"cell": a.cell, "seed": a.seed, "pictures": PICTURES,
            "control": a.control, "encode_s": encode_s,
            "seen": {k: r.seen for k, r in res.items()},
+           "counters": {k: counts[k] for k in (
+               "rqt.tried", "rqt.won", "slicetype.minigops",
+               "slicetype.bframes")},
            "rdoq": check_rdoq(res["rdoq"].kept),
-           "dense": check_dense(res["dense"].kept)}
+           "dense": check_dense(res["dense"].kept),
+           "rqt": check_rqt(res["rqt"].kept)}
     out["check_s"] = time.perf_counter() - t
+    # the RQT runs, and must be compared, where the configuration gives
+    # tu-inter-depth 2
+    rqt_on = enc.param.tu_inter_depth >= 2
     out["pass"] = bool(
         out["rdoq"]["tbs"] and not out["rdoq"]["mismatched"]
         and out["dense"]["blocks"] and not out["dense"]["mv_mismatched"]
         and not out["dense"]["sad_mismatched"]
-        and out["dense"]["cost_within_f32"])
+        and out["dense"]["cost_within_f32"]
+        and not out["rqt"]["mismatched"]
+        and (out["rqt"]["compared"] >= RQT_LEAST or not rqt_on))
     print(json.dumps(out), flush=True)
     return 0 if out["pass"] else 1
 

@@ -714,6 +714,8 @@ class Encoder:
             self.rc.end(len(au) * 8)
             out = au
             new_anchor = (cra_poc, self._last_recon)
+            profiling.count("slicetype.minigops")
+            profiling.count("slicetype.bframes", len(bs))
             out += self._run_b_pipeline(
                 [(frame_b, poc_b, prev_anchor, new_anchor, cost_b, qpf_b,
                   dict(nal_override=NAL_RASL_N))
@@ -744,6 +746,8 @@ class Encoder:
         (anchor_poc, anchor_frame, anchor_cost, anchor_rec, anchor_low,
          anchor_qpf) = queue[-1]
         bs = queue[:-1]
+        profiling.count("slicetype.minigops")
+        profiling.count("slicetype.bframes", len(bs))
         self.pending = leftover
         self._anchor_low = anchor_low
         prev_anchor = self.anchor

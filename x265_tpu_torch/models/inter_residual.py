@@ -113,12 +113,16 @@ def _tq_quads(res, qvec, m, N, bd, sdh, do_rdoq, lossless, scaling,
     return back(lv), back(rr), cb_.reshape(N, 4)
 
 
+# the bins the RQT split pays for its tree: 4 extra cbf_luma and up to 8
+# child chroma cbfs, net of the shared flag
+RQT_TREE_BINS = 8.0
+
+
 def _rqt_split(res, whole, quads, qpy, rate_kk):
     """The explicit RQT level's choice for a batch of N CUs: True where
     the TU split into four quadrants costs less than the one TU, each
     32*SSE + lambda*estBits over the three planes, the split charged the
-    tree's extra bins (4 extra cbf_luma + up to 8 child chroma cbfs, ~8
-    bins net of the shared flag). res: the (y, cb, cr) residuals
+    tree's extra bins (RQT_TREE_BINS). res: the (y, cb, cr) residuals
     [N,n,n], [N,n/2,n/2]; whole, quads: each plane's (levels, recon
     residual) of the one TU and of the quadrants (in the CU's layout);
     qpy [N]; rate_kk: the slice's estBit rows (luma, chroma)."""
@@ -148,7 +152,7 @@ def _rqt_split(res, whole, quads, qpy, rate_kk):
     rate_b = (rate_quads(quads[0][0], kkl) + rate_quads(quads[1][0], kkc)
               + rate_quads(quads[2][0], kkc))
     cost_a = 32.0 * sse3(whole) + lam * rate_a
-    cost_b = 32.0 * sse3(quads) + lam * (rate_b + 8.0)
+    cost_b = 32.0 * sse3(quads) + lam * (rate_b + RQT_TREE_BINS)
     return cost_b < cost_a
 
 

@@ -50,11 +50,14 @@ SPANS = ("encode_frame", "picture") + SYNC_STAGES + (
 # the RDOQ, rqt.tried / rqt.won the CUs the explicit RQT level re-ran /
 # that took its split (all from host-side sizes and the host copy of the
 # split map: no counter synchronises); writer.cus / writer.host_cus the
-# CUs a picture's first native walk codes / reconstructs on the host
+# CUs a picture's first native walk codes / reconstructs on the host;
+# slicetype.minigops / slicetype.bframes the mini-GOPs the slice-type
+# decision closed and the B pictures in them (from the host's queue)
 COUNTERS = ("rd.adopt16.tried", "rd.adopt16.won", "rd.promote.tried",
             "rd.promote.won", "rd.intra32.tried", "rd.intra32.won",
             "vbv.reencodes", "rdoq.tbs", "rqt.tried", "rqt.won",
-            "writer.cus", "writer.host_cus")
+            "writer.cus", "writer.host_cus", "slicetype.minigops",
+            "slicetype.bframes")
 
 
 @dataclass(slots=True, eq=False)

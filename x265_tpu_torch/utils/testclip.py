@@ -60,15 +60,16 @@ def _smooth_texture(w, h, rng, m=96, cell=32):
     return np.clip(128.0 + 50.0 * t / t.std() + 3.0 * f / f.std(), 0, 255)
 
 
-def make_cut_clip(w, h, n, seed, cut):
+def make_cut_clip(w, h, n, seed, cut, m=96):
     """A scene cut: frames 0..cut-1 show one smooth texture, frames
     cut..n-1 an unrelated one, both moving by (5, 2) pels a frame with
     noise, 8-bit 4:2:0. The lookahead's inter cost reaches its intra cost
     at frame `cut` only, so the scenecut test fires there and nowhere
     else; the textures are smooth enough that weighted prediction finds
     no weight inside a scene (its moment fit is not motion-compensated),
-    so the full-plane rd 3 passes run on every P frame."""
-    scenes = [_smooth_texture(w, h, np.random.default_rng(s))
+    so the full-plane rd 3 passes run on every P frame. m: the textures'
+    margin (96 pels hold 16 frames of the motion)."""
+    scenes = [_smooth_texture(w, h, np.random.default_rng(s), m)
               for s in (seed, seed + 1000)]
     frames = []
     for i in range(n):
@@ -81,6 +82,12 @@ def make_cut_clip(w, h, n, seed, cut):
         cr = (255 - y[::2, ::2] // 2).astype(np.uint8)
         frames.append((y, cb, cr))
     return frames
+
+
+def make_long_clip(w, h, n, seed):
+    """make_cut_clip's first scene alone, its margin wide enough for n
+    frames."""
+    return make_cut_clip(w, h, n, seed, cut=n, m=16 + 5 * n)
 
 
 def make_screen_clip(w, h, n, seed):
@@ -573,6 +580,12 @@ GOLDEN_CASES = {
     # pictures is coded (b-adapt 2 places shorter runs on this clip)
     "slower_crf": ("slower", None, {"crf": "28", "ref": "4",
                                     "b-adapt": "0"}, "make_clip", 16),
+    # the benchmark's slower cell (encbench/configs/slower_1080p.json)
+    # at this size: ABR at its 4000 kbps scaled by the area, b-adapt 2,
+    # x265's ref 4 (the port's most), psy-rdoq 1.0 and 4 merge candidates
+    "slower_abr": ("slower", None, {"bitrate": "47", "ref": "4",
+                                    "psy-rdoq": "1.0", "max-merge": "4"},
+                   "make_long_clip", 30),
     # stream structure and live robustness: WPP substreams with the
     # intra-refresh column sweep and its recovery point on the live
     # encode; multi-slice pictures (CTU-row bands; 32x32 CTUs give the
@@ -695,7 +708,7 @@ GOLDEN_FRAMES = {"fast_crf": (11, None), "medium_crf_cut": (11, 7),
                  "medium_twopass": (11, None),
                  "medium_qpfile_zones": (11, None),
                  "medium_analysis_load_sf2": (11, None),
-                 "slower_crf": (10, None),
+                 "slower_crf": (10, None), "slower_abr": (18, None),
                  "medium_slices3": (11, None), "medium_tskip": (11, None),
                  "medium_nr_slices2": (11, None),
                  "medium_zerolatency_dup_hist": (7, 4),
@@ -755,8 +768,8 @@ def golden_clip(name):
     w, h = GOLDEN_SIZES.get(name, (w, h))
     n, cut = GOLDEN_FRAMES.get(name, (n, GOLDEN_CUT))
     maker = {f.__name__: f for f in (
-        make_clip, make_ramp_clip, make_screen_clip, make_split_clip,
-        make_split_clip10, make_rdoq_clip, make_tskip_clip,
+        make_clip, make_long_clip, make_ramp_clip, make_screen_clip,
+        make_split_clip, make_split_clip10, make_rdoq_clip, make_tskip_clip,
         make_scaling_clip, make_nr_clip, make_fade_clip, make_tmvp_clip)}
     maker["make_cut_clip"] = lambda *a: make_cut_clip(*a, cut=cut)
     maker["make_dup_cut_clip"] = lambda *a: make_dup_cut_clip(
